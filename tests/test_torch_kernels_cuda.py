@@ -1,0 +1,142 @@
+"""The port's CUDA kernels against their plain PyTorch versions on a GPU.
+
+Marked `cuda`; each test skips without a GPU. This file imports neither JAX
+nor the JAX package, so it also runs on a GPU machine without JAX:
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from fastposecnn_tpu_torch import kernels
+from fastposecnn_tpu_torch.ops.connected_components import label_components
+from fastposecnn_tpu_torch.ops.voting import vote_counts
+from fastposecnn_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _masks():
+    rng = np.random.default_rng(0)
+    snake = np.zeros((1, 16, 16), bool)
+    snake[0, ::2, :] = True
+    snake[0, 1::4, -1] = True
+    snake[0, 3::4, 0] = True
+    blob = np.zeros((1, 48, 128), bool)
+    blob[0, 4:44, 8:120] = True
+    comb = np.zeros((1, 40, 96), bool)
+    comb[0, :, ::2] = True
+    comb[0, -1] = True
+    return {
+        "random": rng.random((2, 32, 64)) > 0.55,
+        # Widths that are no multiple of a 32-pixel warp: runs cross warps
+        # and rows share warps.
+        "random_odd_width": rng.random((3, 37, 101)) > 0.5,
+        "long_runs_odd_width": rng.random((2, 20, 333)) > 0.03,
+        "comb": comb,
+        "blob": blob,
+        "snake": snake,
+        "empty": np.zeros((1, 8, 8), bool),
+        "full": np.ones((1, 8, 8), bool),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_masks()))
+def test_cc_kernel_matches_reference(cuda_device, name):
+    fg = torch.from_numpy(_masks()[name]).to(cuda_device)
+    before = kernels.launch_counts()["cc_label"]
+    got = label_components(fg)
+    want = label_components(fg, impl="reference")
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["cc_label"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,h,p", [(16, 4096, 1024), (5, 1000, 777)])
+def test_vote_kernel_matches_reference(cuda_device, m, h, p):
+    rng = np.random.default_rng(m)
+    pts = rng.uniform(0, 32, size=(m, p, 2)).astype(np.float32)
+    hyps = rng.uniform(0, 32, size=(m, h, 2)).astype(np.float32)
+    dirs = rng.normal(size=(m, p, 2)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    active = np.arange(m) != 1
+    pvalid = ((rng.random((m, p)) > 0.1) & active[:, None]).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (hyps, pts, dirs, pvalid)]
+    act = torch.from_numpy(active).to(cuda_device)
+    got = vote_counts(*args, 0.999, active=act)
+    want = vote_counts(*args, 0.999, active=act, impl="reference")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not got[1].any()
+
+
+def test_wrappers_reject_bad_tensors(cuda_device):
+    from fastposecnn_tpu_torch.ops.voting import vote_counts_cuda
+
+    hyps = torch.zeros(2, 8, 2, device=cuda_device)
+    pts = torch.zeros(2, 4, 2, device=cuda_device)
+    with pytest.raises(ValueError):
+        vote_counts_cuda(hyps.double(), pts, pts, torch.zeros(2, 4, device=cuda_device), 0.999)
+    with pytest.raises(ValueError):
+        vote_counts_cuda(hyps, pts[:, :3], pts, torch.zeros(2, 4, device=cuda_device), 0.999)
+
+
+def _disc_logits(dev, h=96, w=128, num_classes=3):
+    """NCHW logits with two discs of classes 1 and 2 whose xy fields point
+    at their centres."""
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    cm1 = num_classes - 1
+    mask = np.full((num_classes, h, w), -10.0, np.float32)
+    mask[0] = 10.0
+    xy = np.zeros((2 * cm1, h, w), np.float32)
+    quat = np.zeros((4 * cm1, h, w), np.float32)
+    z = np.zeros((cm1, h, w), np.float32)
+    for cls, cx, cy, r in [(1, 30.5, 40.25, 18), (2, 90.25, 50.5, 22)]:
+        inside = (xs - cx) ** 2 + (ys - cy) ** 2 <= r * r
+        k = cls - 1
+        mask[0][inside], mask[cls][inside] = -10.0, 10.0
+        dx, dy = cx - xs, cy - ys
+        nrm = np.sqrt(dx * dx + dy * dy)
+        xy[2 * k][inside] = (dx / nrm)[inside]
+        xy[2 * k + 1][inside] = (dy / nrm)[inside]
+        quat[4 * k, inside] = 1.0
+        z[k][inside] = np.log(800.0)
+    logits = {"mask": mask, "quaternion": quat, "xy": xy, "z": z,
+              "scales": np.zeros((3 * cm1, h, w), np.float32)}
+    return {k: torch.from_numpy(v)[None].to(dev) for k, v in logits.items()}
+
+
+@pytest.mark.parametrize("num_hyp,max_points", [(128, 1024), (300, 128), (4096, 1024)])
+def test_pipeline_kernels_match_reference(cuda_device, num_hyp, max_points):
+    """run_pipeline through both kernels equals its plain run, also at
+    hypothesis counts that are not a multiple of the point count."""
+    logits = _disc_logits(cuda_device)
+    cfg = PipelineConfig(max_points=max_points, hv_num_hypotheses=num_hyp,
+                         hv_adaptive=False)
+    inv_K = torch.eye(3, device=cuda_device)
+
+    def run(impl):
+        gens = dict(generator=torch.Generator(cuda_device).manual_seed(0),
+                    cpu_generator=torch.Generator().manual_seed(0))
+        return run_pipeline(logits, dataclasses.replace(cfg, impl=impl), inv_K,
+                            **gens)["aggregated"]
+
+    kernels.reset_launch_counts()
+    got = run(None)
+    assert kernels.launch_counts() == {"cc_label": 1, "vote_count": 1}
+    want = run("reference")
+    for key in ("cc_labels", "class_ids", "hypothesis", "win_ratio"):
+        assert torch.equal(got[key], want[key]), key
+    for key in ("xy", "z", "RT"):
+        torch.testing.assert_close(got[key], want[key], atol=2e-4, rtol=1e-4)
+    assert got["class_ids"][0, :2].tolist() == [1, 2]
