@@ -5,10 +5,14 @@
 Builds the port's CUDA kernels from the sources in this checkout (into
 fastposecnn_tpu_torch/_build/, reused by a later run), holds each kernel
 against its plain PyTorch version, runs a crafted scene through the
-INFERENCE pipeline, serves a few full-width requests through
-`InferenceServer` (the main path: the kernels' launch counters are reset
-just before it and read just after), and times the kernels, their plain
-versions and one served frame with CUDA events.
+INFERENCE pipeline, runs the EVALUATING preset (adaptive RANSAC, matching,
+float64 errors) on perfect logits of synthetic scenes through the kernels
+and through their plain versions, serves a few full-width requests through
+`InferenceServer` and evaluates a few synthetic scenes through the
+evaluate CLI (the two main paths: the kernels' launch counters are reset
+just before each and read just after), and times the kernels at the
+served and the evaluated shapes, their plain versions, the adaptive loop's
+host syncs and one served frame with CUDA events.
 
 Every phase prints one flushed JSON line before the next begins. Any failure
 prints a traceback to stderr and exits non-zero; only a run in which every
@@ -73,6 +77,26 @@ def median_ms(fn, iters=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def paired_ms(fn_a, fn_b, pairs=10):
+    """CUDA-event times of fn_a and fn_b in `pairs` interleaved pairs, the
+    order alternating (a b, b a, ...), so that a drift of the host's speed
+    falls on both. Returns the two lists of ms."""
+    fn_a(), fn_b()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(pairs):
+        order = (0, 1) if i % 2 == 0 else (1, 0)
+        for k in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            (fn_a, fn_b)[k]()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end))
+    return times
 
 
 def device_us_by_kernel(fn, calls=20):
@@ -374,6 +398,304 @@ def phase_serve(dev, requests=5):
     return server, images[0], launches
 
 
+
+def oracle_batch(dev, scenes=4):
+    """`scenes` synthetic 480x640 scenes (up to 6 boxes each, 16 instance
+    slots) with perfect logits, as the JAX oracle test builds them
+    (tests/test_pipeline.py): NCHW logits, the GT instances and inv(K)."""
+    from fastposecnn_tpu_torch.data.synthetic import (
+        SceneConfig,
+        generate_scene,
+        perfect_logits,
+        to_nchw,
+    )
+
+    cfg = SceneConfig(height=H, width=W, max_instances=16, max_scene_instances=6)
+    rng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    batch = [generate_scene(rng, cfg) for _ in range(scenes)]
+    seconds = time.perf_counter() - t0
+    logits = [to_nchw(perfect_logits(sc, cfg.num_classes)) for sc in batch]
+    logits = {k: torch.from_numpy(np.concatenate([lg[k] for lg in logits])).to(dev)
+              for k in logits[0]}
+    gts = {k: torch.from_numpy(np.stack([sc["agg"][k] for sc in batch])).to(dev)
+           for k in batch[0]["agg"]}
+    inv_K = torch.tensor(np.linalg.inv(batch[0]["intrinsics"]), dtype=torch.float32,
+                         device=dev)
+    return logits, gts, inv_K, seconds
+
+
+def eval_draws(dev, b, n, p, h, max_iter, seed):
+    """One fixed set of draws for the bbox sampler and every adaptive round."""
+    from fastposecnn_tpu_torch.ops.voting import VoteDraws
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    return VoteDraws(
+        ux=torch.rand((b, n, p), generator=gen, device=dev),
+        uy=torch.rand((b, n, p), generator=gen, device=dev),
+        pairs=torch.randint(0, p, (max_iter, b * n, h, 2), generator=gen, device=dev))
+
+
+def raw_errors(matched):
+    """Float64 errors of the matched GT slots, as phase A of the evaluate
+    CLI computes them."""
+    from fastposecnn_tpu_torch.cli.evaluate import instance_errors
+
+    m = {k: v.cpu().numpy() for k, v in matched.items()}
+    return {k: v[m["valid"]] for k, v in instance_errors(m).items()}
+
+
+def phase_eval_oracle(dev):
+    """The EVALUATING preset at full width (480x640, 7 classes, 16 slots,
+    1024 points, 1000 hypotheses, adaptive to confidence 0.99 within 20
+    rounds) on perfect logits of 4 synthetic scenes: post-network stages,
+    matching and the float64 errors, once through the kernels and once
+    through their plain versions on the same draws. Everything must be
+    exactly equal, and meet the JAX oracle test's thresholds."""
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch import kernels
+    from fastposecnn_tpu_torch.ops.matching import gather_matched, match_instances
+    from fastposecnn_tpu_torch.ops.voting import slot_confident
+    from fastposecnn_tpu_torch.pipeline import run_pipeline
+
+    logits, gts, inv_K, scene_s = oracle_batch(dev)
+    emit("eval_oracle_scenes", scenes=int(gts["valid"].shape[0]), seconds=scene_s)
+    hp = C.evaluating()
+    cfg = C.pipeline_config_from(hp)
+    b, n = gts["valid"].shape[0], cfg.max_instances
+    draws = eval_draws(dev, b, n, cfg.max_points, cfg.hv_num_hypotheses,
+                       cfg.hv_max_iter, seed=11)
+    gts["instance_masks"] = gts["instance_masks"].float()
+
+    def run(impl):
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            out = run_pipeline(logits, dataclasses.replace(cfg, impl=impl), inv_K,
+                               draws=draws)
+            agg = out["aggregated"]
+            match = match_instances(agg, gts)
+            matched = gather_matched(agg, gts, match)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        return out, match, matched, raw_errors(matched), seconds
+
+    kernels.reset_launch_counts()
+    out, match, matched, errs, k_s = run(None)
+    launches = kernels.launch_counts()
+    ref, r_match, _, r_errs, r_s = run("reference")
+    agg, ra = out["aggregated"], ref["aggregated"]
+
+    rounds = agg["vote_rounds"]
+    if rounds != ra["vote_rounds"]:
+        raise AssertionError(f"rounds {rounds} (kernels) != {ra['vote_rounds']} (plain)")
+    if launches["cc_label"] != 1 or launches["vote_count"] != rounds:
+        raise AssertionError(f"launches {launches}, rounds {rounds}")
+    for key, a, r in (("win_ratio", agg["win_ratio"], ra["win_ratio"]),
+                      ("hypothesis", agg["hypothesis"], ra["hypothesis"]),
+                      ("cc_labels", agg["cc_labels"], ra["cc_labels"]),
+                      ("pred_idx", match["pred_idx"], r_match["pred_idx"]),
+                      ("match_valid", match["valid"], r_match["valid"])):
+        if not torch.equal(a, r):
+            raise AssertionError(f"eval_oracle: '{key}' differs between the kernels "
+                                 "and the plain versions")
+    for key in errs:
+        if not np.array_equal(errs[key], r_errs[key]):
+            raise AssertionError(f"eval_oracle: raw '{key}' errors differ")
+
+    n_gt = int(gts["valid"].sum())
+    iou = match["iou"][gts["valid"]]
+    deg5_ap = 100.0 * float((errs["degree_error"] < 5.0).mean())
+    checks = {
+        "every_gt_matched": int(matched["valid"].sum()) == n_gt,
+        "mask_iou_1": bool(torch.allclose(iou, torch.ones_like(iou), atol=1e-6)),
+        "rotation_ap_5deg_100": deg5_ap == 100.0,
+        "offset_below_0.1cm": bool((errs["offset_error"] < 0.1).all()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"eval_oracle thresholds: {checks}, errors "
+                             f"{ {k: v.tolist() for k, v in errs.items()} }")
+
+    # The exit test on the card against the CPU on every win ratio a vote of
+    # at most 1024 points can reach (the CPU tests hold the CPU against JAX).
+    d = torch.cat([torch.full((k + 1,), k) for k in range(1, 1025)]).float()
+    c = torch.cat([torch.arange(k + 1) for k in range(1, 1025)]).float()
+    ratios = torch.unique(c / d)
+    exit_diff = 0
+    for r in range(cfg.hv_max_iter + 1):
+        for h in (cfg.hv_num_hypotheses, 128):
+            on_gpu = slot_confident(ratios.to(dev), r, h, cfg.hv_confidence).cpu()
+            exit_diff += int((on_gpu != slot_confident(ratios, r, h,
+                                                       cfg.hv_confidence)).sum())
+    if exit_diff:
+        raise AssertionError(f"the exit test decides differently on the card "
+                             f"for {exit_diff} (ratio, rounds, H)")
+    emit("eval_oracle", preset=dict(hw=[H, W], classes=hp.num_classes,
+                                    max_instances=n, points=cfg.max_points,
+                                    hypotheses=cfg.hv_num_hypotheses,
+                                    confidence=cfg.hv_confidence,
+                                    max_iter=cfg.hv_max_iter),
+         batch=b, gt_instances=n_gt, active_slots=int(agg["valid"].sum()),
+         launches=launches, rounds=rounds, thresholds=checks,
+         worst_errors={k: float(v.min() if k == "3d_iou" else v.max())
+                       for k, v in errs.items()},
+         exact_vs_plain=["rounds", "win_ratio", "hypothesis", "cc_labels",
+                         "pred_idx", "match_valid"] + sorted(errs),
+         exit_test_ratios_checked=int(ratios.numel()),
+         seconds=dict(kernels=k_s, plain=r_s))
+    return dict(out=out, draws=draws, launches=launches, rounds=rounds)
+
+
+def phase_evaluate(dev, scenes=9):
+    """The port's evaluate CLI (`cli.evaluate.main`) on `scenes` in-memory
+    480x640 synthetic scenes with seeded random weights, into a temporary
+    directory; the kernels' launch counts of its phase A."""
+    import contextlib
+    import io
+    import tempfile
+
+    from fastposecnn_tpu_torch import kernels
+    from fastposecnn_tpu_torch.cli import evaluate
+
+    with tempfile.TemporaryDirectory(prefix="fpcnn_eval_") as out_dir:
+        argv = ["--synthetic", str(scenes), "--output", out_dir, "--device", "cuda",
+                "--synthetic_seed", "5", "--vote_seed", "0"]
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(printed):
+            summary = evaluate.main(argv)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    if min(launches.values()) < 1:
+        raise AssertionError(f"phase A skipped a kernel: {launches}")
+    if summary["frames"] != scenes:
+        raise AssertionError(f"evaluated {summary['frames']} of {scenes} scenes")
+    lines = printed.getvalue().splitlines()
+    emit("evaluate_scenes", scenes=scenes, seconds=summary["scene_seconds"])
+    emit("evaluate", frames=summary["frames"], batches=summary["batches"],
+         seconds=summary["seconds"],
+         frames_per_s=summary["frames_per_s"], vote_rounds=summary["vote_rounds"],
+         stage_ms=summary["stage_ms"], launches=launches,
+         summary_lines=[ln for ln in lines if ln.startswith(("phase", "3D-IoU", "rotation"))])
+    return summary, launches
+
+
+def vote_bound(active_slots, h, p, tensors):
+    """K2's least time: unfused FP32 operations on the active slots' cells,
+    or the bytes of its inputs and output, whichever is larger."""
+    op_s = active_slots * h * p * VOTE_FLOPS_PER_CELL / FP32_UNFUSED_OPS_PER_S
+    byte_s = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
+    return max(op_s, byte_s) * 1e3, "operations" if op_s >= byte_s else "bytes"
+
+
+def phase_eval_timing(dev, oracle, smi):
+    """K2 at the evaluation shapes (the oracle batch's first round, 64 x 1000
+    x 1024, and the held-out recipe's 64 x 128 x 1024), K1 at B=4 on the
+    oracle batch, and the adaptive loop's host syncs: 20 rounds with the
+    per-round flag read against the same rounds without it."""
+    from fastposecnn_tpu_torch.kernels.build import check, load_library
+    from fastposecnn_tpu_torch.ops import voting as V
+    from fastposecnn_tpu_torch.ops.connected_components import label_components_reference
+
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    agg, draws = oracle["out"]["aggregated"], oracle["draws"]
+    b, n = agg["valid"].shape
+    m = b * n
+    with torch.inference_mode():
+        pts, dirs, npts, pt_valid = V.sample_mask_points_bbox(
+            draws.ux, draws.uy, agg["instance_masks"], agg["xy_dense"],
+            agg["cc_labels"], agg["cc_roots"])
+        p = pts.shape[2]
+        pts, dirs = pts.reshape(m, p, 2).contiguous(), dirs.reshape(m, p, 2).contiguous()
+        active = agg["valid"].reshape(m) & (npts.reshape(m) >= 5)
+        pv = (pt_valid.reshape(m, p) & active[:, None]).float()
+        hyps = V.generate_hypotheses(pts, dirs, draws.pairs[0]).contiguous()
+    act32 = active.to(torch.int32)
+    t2 = float(np.float32(0.999 ** 2))
+    out = {}
+
+    def time_vote(name, hyps, pts, dirs, pv, act32):
+        mm, hh = hyps.shape[:2]
+        counts = torch.empty((mm, hh), dtype=torch.float32, device=dev)
+
+        def call():
+            check(lib.fpcnn_vote_count(
+                hyps.data_ptr(), pts.data_ptr(), dirs.data_ptr(), pv.data_ptr(),
+                act32.data_ptr(), counts.data_ptr(), mm, hh, pts.shape[1], t2, stream),
+                "vote_count")
+
+        ms = loop_ms(call)
+        plain = median_ms(lambda: V.vote_counts_reference(
+            hyps, pts, dirs, pv, 0.999, active=act32.bool()), iters=5)
+        n_act = int(act32.sum())
+        bound, by = vote_bound(n_act, hh, pts.shape[1], (hyps, pts, dirs, pv, act32, counts))
+        out[name] = dict(kernel="vote_count", shape=[mm, hh, pts.shape[1]],
+                         active=n_act, ms=ms, plain_ms=plain, bound_ms=bound,
+                         bound_by=by, device_us_by_kernel=device_us_by_kernel(call))
+        emit("timing", what=name, card=smi, **out[name])
+
+    time_vote("vote_count_eval_oracle_round1", hyps, pts, dirs, pv, act32)
+    h2, p2, d2, v2, a2 = vote_inputs(dev, 64, 128, 1024, 16, seed=9)
+    time_vote("vote_count_held_out_shape", h2, p2, d2, v2, a2.to(torch.int32))
+
+    fg = oracle["out"]["categorical"]["mask"] != 0
+    fg8 = fg.contiguous().view(torch.uint8)
+    labels = torch.empty(fg.shape, dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def cc_call():
+        check(lib.fpcnn_cc_label(fg8.data_ptr(), labels.data_ptr(), err.data_ptr(),
+                                 fg.shape[0], H, W, stream), "cc_label")
+
+    cc_ms = loop_ms(cc_call)
+    if int(err.item()) != 0:
+        raise AssertionError("cc_label passed its step bound on the oracle batch")
+    out["cc_label_eval_oracle_b4"] = dict(
+        kernel="cc_label", shape=list(fg.shape), foreground=int(fg.sum()), ms=cc_ms,
+        plain_ms=median_ms(lambda: label_components_reference(fg), iters=5),
+        bound_ms=fg.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        device_us_by_kernel=device_us_by_kernel(cc_call))
+    emit("timing", what="cc_label_eval_oracle_b4", card=smi,
+         **out["cc_label_eval_oracle_b4"])
+
+    # The adaptive loop: 20 rounds (confidence 1.0 is never reached) with
+    # the flag read before each round, against the same rounds, exit test
+    # included, replayed without reading the flag.
+    rounds = 20
+    h = hyps.shape[1]
+    slots = (pts, dirs, npts.reshape(m), agg["valid"].reshape(m), pt_valid.reshape(m, p))
+
+    def with_syncs():
+        V.ransac_vote_centers_adaptive(*slots, h, confidence=1.0, max_iter=rounds,
+                                       pairs=draws.pairs)
+
+    def without_syncs():
+        count_denom = pv.sum(-1).clamp_min(1.0)
+        best_pts = torch.zeros((m, 2), device=dev)
+        best_ratio = torch.zeros((m,), device=dev)
+        for r in range(rounds):
+            torch.where(active, V.slot_confident(best_ratio, r, h, 1.0), True).all()
+            hy = V.generate_hypotheses(pts, dirs, draws.pairs[r])
+            win_pts, win = V._pick_winners(hy, V.vote_counts(hy, pts, dirs, pv, 0.999,
+                                                             active=active))
+            ratio = win / count_denom
+            best_pts = torch.where((ratio > best_ratio)[:, None], win_pts, best_pts)
+            best_ratio = torch.maximum(best_ratio, ratio)
+
+    with torch.inference_mode():
+        t_sync, t_free = paired_ms(with_syncs, without_syncs, pairs=10)
+    diff = np.subtract(t_sync, t_free) / rounds
+    out["round_loop"] = dict(
+        rounds=rounds, shape=[m, h, p], pairs=len(t_sync),
+        ms_with_flag_reads=statistics.median(t_sync),
+        ms_without=statistics.median(t_free),
+        sync_cost_ms_per_round=float(np.median(diff)),
+        sync_cost_quartiles=[float(q) for q in np.percentile(diff, [25, 75])])
+    emit("timing", what="adaptive_round_loop", card=smi, **out["round_loop"])
+    return out
+
+
 def phase_timing(dev, server, image, launches, errs, smi):
     from fastposecnn_tpu_torch import pipeline as P
     from fastposecnn_tpu_torch.kernels.build import check, load_library
@@ -494,12 +816,24 @@ def main():
     errs = {"cc_label": phase_cc_kernel(dev),
             "vote_count": phase_vote_kernel(dev)}
     phase_known_scene(dev)
-    set_tf32(*defaults)  # serve and time as a user would, with torch defaults
+    oracle = phase_eval_oracle(dev)
+    set_tf32(*defaults)  # serve, evaluate and time as a user would
     server, image, launches = phase_serve(dev)
+    _, eval_launches = phase_evaluate(dev)
+    eval_times = phase_eval_timing(dev, oracle, smi)
     kernels = phase_timing(dev, server, image, launches, errs, smi)
     for k in kernels:
-        if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")):
-            raise AssertionError(f"non-finite timing for {k['name']}")
+        name = k["name"]
+        k["launches_by_path"] = {"serve": launches[name],
+                                 "eval_oracle": oracle["launches"][name],
+                                 "evaluate": eval_launches[name]}
+        k["at_eval_shapes"] = [dict(what=what, **{f: v[f] for f in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by")})
+            for what, v in eval_times.items() if v.get("kernel") == name]
+        times = [k] + k["at_eval_shapes"]
+        if not all(math.isfinite(t[f]) for t in times
+                   for f in ("ms", "plain_ms", "bound_ms")):
+            raise AssertionError(f"non-finite timing for {name}")
     faulthandler.cancel_dump_traceback_later()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

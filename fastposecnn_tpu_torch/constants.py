@@ -1,5 +1,5 @@
-"""Dataset constants the inference path needs (a copy of the JAX package's
-`constants.py:15-48`; the port imports nothing of that package).
+"""Dataset constants (a copy of the JAX package's `constants.py:15-82`, without
+the matplotlib colormap; the port imports nothing of that package).
 
 CAMERA intrinsics fx=fy=577.5 cx=319.5 cy=239.5; REAL intrinsics
 fx=591.0125 fy=590.16775 cx=322.525 cy=244.11084 (public NOCS dataset facts).
@@ -7,9 +7,14 @@ fx=591.0125 fy=590.16775 cx=322.525 cy=244.11084 (public NOCS dataset facts).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 CAMERA_CLASSES = ("bg", "bottle", "bowl", "camera", "can", "laptop", "mug")
+REAL_CLASSES = CAMERA_CLASSES
+# Classes treated as rotationally symmetric about their y axis.
+SYMMETRIC_CLASSES = ("bowl", "can", "bottle")
 
 INTRINSICS = {
     "CAMERA": np.array(
@@ -20,6 +25,8 @@ INTRINSICS = {
         dtype=np.float64,
     ),
 }
+
+CLASSES = {"CAMERA": CAMERA_CLASSES, "REAL": REAL_CLASSES}
 
 IMAGE_HEIGHT = 480
 IMAGE_WIDTH = 640
@@ -32,3 +39,31 @@ def scaled_intrinsics(dataset_name: str, height: int, width: int) -> np.ndarray:
     K[0] *= width / IMAGE_WIDTH
     K[1] *= height / IMAGE_HEIGHT
     return K
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetSpec:
+    """Static description of one NOCS-style dataset."""
+
+    name: str
+    classes: tuple
+    symmetric_classes: tuple
+    intrinsics: np.ndarray
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.classes)
+
+    def symmetric_class_ids(self) -> tuple:
+        return tuple(self.classes.index(c) for c in self.symmetric_classes
+                     if c in self.classes)
+
+
+def dataset_spec(name: str, selected_classes=None) -> DatasetSpec:
+    classes = tuple(selected_classes) if selected_classes else CLASSES[name]
+    return DatasetSpec(
+        name=name,
+        classes=classes,
+        symmetric_classes=tuple(c for c in SYMMETRIC_CLASSES if c in classes),
+        intrinsics=INTRINSICS[name],
+    )

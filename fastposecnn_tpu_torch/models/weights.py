@@ -15,6 +15,7 @@ momentum 0.1 (the torch default), which matters only for training.
 from __future__ import annotations
 
 import json
+import pathlib
 import math
 import re
 from typing import Dict, Mapping, Optional, Tuple
@@ -151,3 +152,38 @@ def init_random_(net: nn.Module, seed: int) -> nn.Module:
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
     return net
+
+
+def _npz_hparams(path) -> Optional[dict]:
+    """The decoded `__hparams_json__` of an npz snapshot (None if absent),
+    read without loading the weights."""
+    p = pathlib.Path(path)
+    if not (p.is_file() and p.suffix == ".npz"):
+        raise NotImplementedError(
+            f"{path}: only npz weight snapshots load in this package (orbax "
+            "directories and Lightning .ckpt files are not ported)")
+    with np.load(p, allow_pickle=False) as z:
+        if "__hparams_json__" not in z.files:
+            return None
+        return json.loads(str(z["__hparams_json__"]))
+
+
+def merge_arch_from_any(path, hp):
+    """The architecture-defining hparams (`config.ARCH_FIELDS`) of an npz
+    snapshot merged into `hp`: call before building the dataset and the
+    network (counterpart of `train/checkpoint.py::merge_arch_from_any`)."""
+    from fastposecnn_tpu_torch import config as C
+
+    ckpt_hp = _npz_hparams(path)
+    if ckpt_hp is None:
+        return hp
+    return C.merge_from_checkpoint(hp, C.HParams.from_json(json.dumps(ckpt_hp)))
+
+
+def load_any_checkpoint(path, hp):
+    """Weights of an npz snapshot as a state_dict of `PoseRegressorNet`, and
+    `hp` with the snapshot's architecture fields (the npz half of
+    `train/checkpoint.py::load_any_checkpoint`)."""
+    hp = merge_arch_from_any(path, hp)
+    flat, _ = load_npz_checkpoint(path)
+    return from_jax_params(flat), hp

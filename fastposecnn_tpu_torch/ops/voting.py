@@ -1,12 +1,17 @@
-"""RANSAC Hough voting for 2D object centres, the inference path's subset
-(counterpart of the JAX package's `ops/voting.py`): the bbox point sampler
-with the CC-label fold, rolled hypothesis pairing, inlier counting (kernel
-K2, `kernels/vote_count.cu`), single-shot (`adaptive=False`) RANSAC and
-the dense least-squares refinement.
+"""RANSAC Hough voting for 2D object centres (counterpart of the JAX
+package's `ops/voting.py`): the bbox point sampler with the CC-label fold
+and the exact inverse-CDF sampler, hypotheses from rolled or random point
+pairs, inlier counting (kernel K2, `kernels/vote_count.cu`), single-shot and
+adaptive (confidence-driven) RANSAC, and the least-squares refinement over
+the sampled points or over every mask pixel.
 
 Random draws are injected: `torch` cannot reproduce `jax.random` streams, so
-`hough_vote` takes `draws` (`VoteDraws`: the sampler's uniforms and the
-rolled-pairing shifts), or makes them from explicit generators.
+`hough_vote` takes `draws` (`VoteDraws`), or makes them from explicit
+generators.
+
+The adaptive loop runs on the host: before each round it reads one flag
+from the device (all active slots confident), so a batch costs at most
+`max_iter` + 1 host syncs.
 """
 
 from __future__ import annotations
@@ -29,30 +34,82 @@ _P_CHUNK = 512
 
 @dataclasses.dataclass
 class VoteDraws:
-    """ux, uy: f32 [B, N, P] uniforms of the bbox sampler; shifts: ints
-    [ceil(H/P)] in [1, P) of the rolled pairing (host values: `torch.roll`
-    needs host ints)."""
+    """The random draws of one `hough_vote` call. Each path reads its own:
 
-    ux: torch.Tensor
-    uy: torch.Tensor
-    shifts: Tuple[int, ...]
+    ux, uy: f32 [B, N, P] uniforms of the bbox sampler;
+    shifts: ints [ceil(H/P)] in [1, P) of the single-shot rolled pairing
+      (host values: `torch.roll` needs host ints);
+    u: f32 [B, N, P] uniforms of the cdf sampler;
+    pairs: int [R, B*N, H, 2] point indices in [0, P) of the adaptive
+      loop, one [B*N, H, 2] per round (R >= the rounds that run); None
+      draws each round's pairs from the generator instead.
+    """
+
+    ux: Optional[torch.Tensor] = None
+    uy: Optional[torch.Tensor] = None
+    shifts: Optional[Tuple[int, ...]] = None
+    u: Optional[torch.Tensor] = None
+    pairs: Optional[torch.Tensor] = None
 
 
 def sample_draws(b: int, n: int, max_points: int, num_hyp: int,
                  generator: torch.Generator,
-                 cpu_generator: torch.Generator) -> VoteDraws:
-    """Fresh draws: uniforms on `generator`'s device, shifts on a CPU
-    generator (so reading them needs no device sync)."""
+                 cpu_generator: torch.Generator,
+                 sampler: str = "bbox") -> VoteDraws:
+    """Fresh sampler draws: uniforms on `generator`'s device, shifts on a
+    CPU generator (so reading them needs no device sync). The adaptive
+    loop's pairs are drawn round by round, as it runs."""
     dev = generator.device
-    ux = torch.rand((b, n, max_points), generator=generator, device=dev)
-    uy = torch.rand((b, n, max_points), generator=generator, device=dev)
+    if sampler == "cdf":
+        u = torch.rand((b, n, max_points), generator=generator, device=dev)
+        draws = VoteDraws(u=u)
+    else:
+        ux = torch.rand((b, n, max_points), generator=generator, device=dev)
+        uy = torch.rand((b, n, max_points), generator=generator, device=dev)
+        draws = VoteDraws(ux=ux, uy=uy)
     n_chunks = max(1, -(-num_hyp // max_points))
     shifts = torch.randint(1, max_points, (n_chunks,), generator=cpu_generator)
-    return VoteDraws(ux, uy, tuple(int(s) for s in shifts))
+    draws.shifts = tuple(int(s) for s in shifts)
+    return draws
 
 
 # -----------------------------------------------------------------------------
 # Point sampling
+
+
+def sample_mask_points(
+    u: torch.Tensor,  # [B, N, P] uniforms
+    inst_masks: torch.Tensor,  # [B, N, H, W] binary
+    xy_dense: torch.Tensor,  # [B, H, W, 2] unit-vector field
+):
+    """Exact inverse-CDF sampling of P mask pixels per instance (uniform,
+    with replacement): the cumsum of the mask, then a binary search for
+    each draw u * npts (the first index whose cdf exceeds it). Counts are
+    sums of 0/1 values in float32, exact below 2^24 pixels.
+
+    Returns pts [B, N, P, 2] (x, y), dirs [B, N, P, 2], npts [B, N],
+    pt_valid [B, N, P]."""
+    b, n, h, w = inst_masks.shape
+    hw = h * w
+    p = u.shape[-1]
+    flat = inst_masks.reshape(b, n, hw).float()
+    npts = flat.sum(-1)
+    cdf = torch.cumsum(flat, dim=-1)
+    target = u * npts[..., None]
+    lo = torch.zeros((b, n, p), dtype=torch.int64, device=u.device)
+    hi = torch.full((b, n, p), hw - 1, dtype=torch.int64, device=u.device)
+    for _ in range(max(1, int(np.ceil(np.log2(hw))))):
+        mid = (lo + hi) // 2
+        gt = torch.gather(cdf, -1, mid) > target
+        lo, hi = torch.where(gt, lo, mid + 1), torch.where(gt, mid, hi)
+    idx = hi
+
+    pt_valid = (npts > 0)[..., None].expand(b, n, p)
+    pts = torch.stack([(idx % w).float(), (idx // w).float()], dim=-1)
+    dirs = torch.gather(xy_dense.reshape(b, hw, 2), 1,
+                        idx.reshape(b, n * p, 1).expand(-1, -1, 2)).reshape(b, n, p, 2)
+    keep = pt_valid[..., None].float()
+    return pts * keep, dirs * keep, npts, pt_valid
 
 
 def sample_mask_points_bbox(
@@ -120,6 +177,17 @@ def _intersect_pairs(p0, d0, p1, d1):
     hy = (b1 * n0x - b0 * n1x) / safe_det
     hyp = torch.stack([hx, hy], dim=-1)
     return torch.where(degenerate[..., None], torch.zeros_like(hyp), hyp)
+
+
+def generate_hypotheses(pts: torch.Tensor, dirs: torch.Tensor,
+                        pairs: torch.Tensor) -> torch.Tensor:
+    """[M, H, 2] candidate centres from the point pairs `pairs` [M, H, 2]
+    (indices into P)."""
+    def take(x, i):
+        return torch.gather(x, 1, pairs[..., i:i + 1].expand(-1, -1, 2))
+
+    return _intersect_pairs(take(pts, 0), take(dirs, 0), take(pts, 1),
+                            take(dirs, 1))
 
 
 def generate_hypotheses_rolled(pts: torch.Tensor, dirs: torch.Tensor,
@@ -239,6 +307,30 @@ def _solve_sym2x2(ATA: torch.Tensor, ATb: torch.Tensor) -> torch.Tensor:
                        torch.stack([x0, x1], dim=-1))
 
 
+def _inlier_mask(win, pts, dirs, pvalid, inlier_thresh: float):
+    """win [M, 2], pts/dirs [M, P, 2] -> [M, P] float: the points voting for
+    their slot's winner (this test keeps the |d|^2 factor)."""
+    a = win[:, None, :] - pts
+    dot = (a * dirs).sum(-1)
+    vsq = (a * a).sum(-1) * (dirs * dirs).sum(-1)
+    inl = (dot > 0) & (dot * dot > _thresh_sq(inlier_thresh, pts.device) * vsq)
+    return inl.float() * pvalid
+
+
+def refine_centers(win: torch.Tensor, pts: torch.Tensor, dirs: torch.Tensor,
+                   pvalid: torch.Tensor, inlier_thresh: float) -> torch.Tensor:
+    """Normal-form least squares over the winner's inliers among the
+    sampled points: n = (d.y, -d.x), b = n . p, centre = (A^T A)^-1 A^T b.
+    win [M, 2], pts/dirs [M, P, 2], pvalid [M, P] -> [M, 2]."""
+    w = _inlier_mask(win, pts, dirs, pvalid, inlier_thresh)
+    nrm = torch.stack([dirs[..., 1], -dirs[..., 0]], dim=-1)
+    bvec = (nrm * pts).sum(-1)
+    nw = nrm * w[..., None]
+    ATA = torch.einsum("mpi,mpj->mij", nw, nrm)
+    ATb = torch.einsum("mpi,mp->mi", nw, bvec)
+    return _solve_sym2x2(ATA, ATb)
+
+
 def refine_centers_dense(win: torch.Tensor, masks: torch.Tensor,
                          field: torch.Tensor, inlier_thresh: float) -> torch.Tensor:
     """Least squares over the winner's inliers among ALL in-mask pixels:
@@ -270,15 +362,23 @@ def refine_centers_dense(win: torch.Tensor, masks: torch.Tensor,
 
 
 # -----------------------------------------------------------------------------
-# Single-shot RANSAC
+# RANSAC: single shot and adaptive rounds
+
+
+def _pick_winners(hyps: torch.Tensor, counts: torch.Tensor):
+    """First-max winner per slot: (winning hypothesis [M, 2], its count [M])."""
+    win_idx = torch.argmax(counts, dim=-1)
+    win_pts = torch.gather(hyps, 1, win_idx[:, None, None].expand(-1, 1, 2))[:, 0]
+    return win_pts, torch.gather(counts, 1, win_idx[:, None])[:, 0]
 
 
 def ransac_vote_centers(pts, dirs, npts, active, pt_valid, shifts,
                         round_hyp_num: int, inlier_thresh: float = 0.999,
-                        impl: Optional[str] = None):
+                        impl: Optional[str] = None, refine: str = "none"):
     """Single-shot RANSAC (the JAX `adaptive=False` branch): one vote over
     `round_hyp_num` rolled hypotheses. pts/dirs [M, P, 2], npts/active [M],
-    pt_valid [M, P].
+    pt_valid [M, P]. `refine="sampled"` refines the winners over the
+    sampled points.
 
     Returns (centers [M, 2], win_ratio [M], hypotheses [M, round_hyp_num, 2]);
     slots with fewer than 5 pixels get (0, 0)."""
@@ -289,11 +389,76 @@ def ransac_vote_centers(pts, dirs, npts, active, pt_valid, shifts,
     hyps = generate_hypotheses_rolled(pts, dirs, round_hyp_num, shifts)
     counts = vote_counts(hyps, pts, dirs, pvalid, inlier_thresh,
                          active=active, impl=impl)
-    win_idx = torch.argmax(counts, dim=-1)
-    best_pts = torch.gather(hyps, 1, win_idx[:, None, None].expand(-1, 1, 2))[:, 0]
-    best_ratio = torch.gather(counts, 1, win_idx[:, None])[:, 0] / count_denom
+    best_pts, win_counts = _pick_winners(hyps, counts)
+    best_ratio = win_counts / count_denom
+    if refine == "sampled":
+        best_pts = refine_centers(best_pts, pts, dirs, pvalid, inlier_thresh)
     centers = torch.where(active[:, None], best_pts, torch.zeros_like(best_pts))
     return centers, best_ratio, hyps
+
+
+def slot_confident(best_ratio: torch.Tensor, rounds: int, round_hyp_num: int,
+                   confidence: float) -> torch.Tensor:
+    """The adaptive loop's exit test per slot, on the device:
+    1 - (1 - r^2)^(rounds * H) > confidence. Float32, in the JAX order
+    (`ops/voting.py:698-703`): r*r, 1 - that, a float32 power, 1 - that."""
+    base = 1.0 - best_ratio * best_ratio
+    hyp_num = torch.full_like(base, float(np.float32(rounds * round_hyp_num)))
+    conf = 1.0 - torch.pow(base, hyp_num)
+    return conf > torch.tensor(confidence, dtype=conf.dtype, device=conf.device)
+
+
+def ransac_vote_centers_adaptive(
+        pts, dirs, npts, active, pt_valid, round_hyp_num: int,
+        inlier_thresh: float = 0.999, confidence: float = 0.99,
+        max_iter: int = 20,
+        pairs: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        impl: Optional[str] = None, refine: str = "none"):
+    """Adaptive RANSAC (the JAX `round_body`/`round_cond` loop,
+    `ops/voting.py:681-719`): rounds of `round_hyp_num` hypotheses from
+    random point pairs until every active slot is confident or `max_iter`
+    rounds ran. Each round's pairs are `pairs[round]` [M, H, 2], or drawn
+    from `generator` when `pairs` is None. A slot keeps its best winner
+    over the rounds (strictly better ratios replace it).
+
+    Returns (centers [M, 2], win_ratio [M], the last round's hypotheses
+    [M, H, 2] (zeros if no round ran), rounds run)."""
+    m, p, _ = pts.shape
+    if pairs is None and generator is None:
+        raise ValueError("the adaptive vote needs `pairs` or a generator")
+    active = active & (npts >= _MIN_POINTS)
+    pvalid = (pt_valid & active[:, None]).float()
+    count_denom = pvalid.sum(-1).clamp_min(1.0)
+
+    best_pts = torch.zeros((m, 2), dtype=torch.float32, device=pts.device)
+    best_ratio = torch.zeros((m,), dtype=torch.float32, device=pts.device)
+    last_hyps = torch.zeros((m, round_hyp_num, 2), dtype=torch.float32,
+                            device=pts.device)
+    rounds = 0
+    while rounds < max_iter and not bool(torch.where(
+            active, slot_confident(best_ratio, rounds, round_hyp_num,
+                                   confidence), True).all()):
+        if pairs is not None:
+            idx = pairs[rounds].to(device=pts.device, dtype=torch.int64)
+        else:
+            idx = torch.randint(0, p, (m, round_hyp_num, 2),
+                                generator=generator, device=pts.device)
+        hyps = generate_hypotheses(pts, dirs, idx)
+        counts = vote_counts(hyps, pts, dirs, pvalid, inlier_thresh,
+                             active=active, impl=impl)
+        win_pts, win_counts = _pick_winners(hyps, counts)
+        ratio = win_counts / count_denom
+        better = ratio > best_ratio
+        best_pts = torch.where(better[:, None], win_pts, best_pts)
+        best_ratio = torch.maximum(best_ratio, ratio)
+        last_hyps = hyps
+        rounds += 1
+
+    if refine == "sampled":
+        best_pts = refine_centers(best_pts, pts, dirs, pvalid, inlier_thresh)
+    centers = torch.where(active[:, None], best_pts, torch.zeros_like(best_pts))
+    return centers, best_ratio, last_hyps, rounds
 
 
 def hough_vote(agg: dict, max_points: int = 1024, round_hyp_num: int = 128,
@@ -301,39 +466,65 @@ def hough_vote(agg: dict, max_points: int = 1024, round_hyp_num: int = 128,
                draws: Optional[VoteDraws] = None,
                generator: Optional[torch.Generator] = None,
                cpu_generator: Optional[torch.Generator] = None,
-               impl: Optional[str] = None) -> dict:
-    """Attach voted 2D centres to the aggregation payload: bbox sampling with
-    the CC-label fold, single-shot RANSAC with rolled pairing, dense
-    refinement. Adds 'xy' [B, N, 2], 'win_ratio' [B, N], 'hypothesis' and
-    'pruned_hypothesis' [B, N, round_hyp_num, 2].
+               impl: Optional[str] = None, adaptive: bool = False,
+               confidence: float = 0.99, max_iter: int = 20,
+               sampler: str = "bbox", refine: str = "dense") -> dict:
+    """Attach voted 2D centres to the aggregation payload: point sampling
+    (`sampler` "bbox" with the CC-label fold, or the exact "cdf"), RANSAC
+    (single shot with rolled pairing, or `adaptive` rounds of random
+    pairs), then refinement (`refine` "dense" over every mask pixel, or
+    "sampled" over the sampled points). Adds 'xy' [B, N, 2], 'win_ratio'
+    [B, N], 'hypothesis' and 'pruned_hypothesis' [B, N, round_hyp_num, 2]
+    (the last round's cloud) and 'vote_rounds' (an int: 1 for a single
+    shot).
 
     `draws` holds the random draws; without it they come from `generator`
-    (on the data's device) and `cpu_generator`."""
+    (on the data's device) and `cpu_generator`. The adaptive loop draws
+    each round's pairs from `generator` unless `draws.pairs` holds them.
+    Unlike the JAX function, the default is the single shot."""
+    if sampler not in ("bbox", "cdf") or refine not in ("dense", "sampled"):
+        raise ValueError(f"unknown sampler {sampler!r} or refine {refine!r}")
     b, n = agg["valid"].shape
     if draws is None:
         if generator is None or cpu_generator is None:
             raise ValueError("hough_vote needs `draws` or both generators")
         draws = sample_draws(b, n, max_points, round_hyp_num, generator,
-                             cpu_generator)
-    pts, dirs, npts, pt_valid = sample_mask_points_bbox(
-        draws.ux, draws.uy, agg["instance_masks"], agg["xy_dense"],
-        agg["cc_labels"], agg["cc_roots"],
-    )
+                             cpu_generator, sampler)
+    if sampler == "cdf":
+        pts, dirs, npts, pt_valid = sample_mask_points(
+            draws.u, agg["instance_masks"], agg["xy_dense"])
+    else:
+        pts, dirs, npts, pt_valid = sample_mask_points_bbox(
+            draws.ux, draws.uy, agg["instance_masks"], agg["xy_dense"],
+            agg["cc_labels"], agg["cc_roots"],
+        )
     m = b * n
-    winners, ratio, hyps = ransac_vote_centers(
-        pts.reshape(m, max_points, 2), dirs.reshape(m, max_points, 2),
-        npts.reshape(m), agg["valid"].reshape(m),
-        pt_valid.reshape(m, max_points), draws.shifts, round_hyp_num,
-        inlier_thresh=inlier_thresh, impl=impl,
-    )
-    centers = refine_centers_dense(winners.reshape(b, n, 2),
-                                   agg["instance_masks"], agg["xy_dense"],
-                                   inlier_thresh)
-    active = agg["valid"] & (npts >= _MIN_POINTS)
-    centers = torch.where(active[..., None], centers, torch.zeros_like(centers))
+    slots = (pts.reshape(m, max_points, 2), dirs.reshape(m, max_points, 2),
+             npts.reshape(m), agg["valid"].reshape(m))
+    inner_refine = "sampled" if refine == "sampled" else "none"
+    if adaptive:
+        winners, ratio, hyps, rounds = ransac_vote_centers_adaptive(
+            *slots, pt_valid.reshape(m, max_points), round_hyp_num,
+            inlier_thresh=inlier_thresh, confidence=confidence,
+            max_iter=max_iter, pairs=draws.pairs,
+            generator=generator, impl=impl, refine=inner_refine)
+    else:
+        winners, ratio, hyps = ransac_vote_centers(
+            *slots, pt_valid.reshape(m, max_points), draws.shifts,
+            round_hyp_num, inlier_thresh=inlier_thresh, impl=impl,
+            refine=inner_refine)
+        rounds = 1
+    centers = winners.reshape(b, n, 2)
+    if refine == "dense":
+        centers = refine_centers_dense(centers, agg["instance_masks"],
+                                       agg["xy_dense"], inlier_thresh)
+        active = agg["valid"] & (npts >= _MIN_POINTS)
+        centers = torch.where(active[..., None], centers,
+                              torch.zeros_like(centers))
     out = dict(agg)
     out["xy"] = centers
     out["win_ratio"] = ratio.reshape(b, n)
     out["hypothesis"] = hyps.reshape(b, n, round_hyp_num, 2)
     out["pruned_hypothesis"] = out["hypothesis"]
+    out["vote_rounds"] = rounds
     return out

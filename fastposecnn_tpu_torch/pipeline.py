@@ -1,10 +1,10 @@
-"""Post-network stages of the inference path: logits -> categorical ->
-instances -> voted centres -> R/T (counterpart of the JAX package's
-`pipeline.py:24-144`).
+"""Post-network stages: logits -> categorical -> instances -> voted centres
+-> R/T (counterpart of the JAX package's `pipeline.py:24-144`).
 
-Only the options the INFERENCE preset uses are ported: `ransac` voting with
-the `bbox` sampler, single-shot (`hv_adaptive=False`), `dense` refinement.
-Any other option raises `NotImplementedError`.
+`ransac` voting is ported with both samplers (`bbox`, `cdf`), both RANSAC
+schedules (single shot, and the adaptive loop of the EVALUATING preset) and
+both refinements (`dense`, `sampled`). `hv_implementation="soft"` is not
+ported and raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -26,25 +26,26 @@ class PipelineConfig:
     max_points: int = 1024
     hv_num_hypotheses: int = 128
     hv_inlier_thresh: float = 0.999
+    hv_confidence: float = 0.99
+    hv_max_iter: int = 20
     hv_adaptive: bool = True
-    hv_sampler: str = "bbox"
-    hv_refine: str = "dense"
+    hv_sampler: str = "bbox"  # 'bbox' (one gather round) or 'cdf' (exact)
+    hv_refine: str = "dense"  # 'dense' all-pixel LSQ | 'sampled'
     hv_implementation: str = "ransac"
     # None: kernels on CUDA tensors, plain versions on CPU tensors;
     # "reference": plain versions on either device.
     impl: Optional[str] = None
 
     def check_ported(self) -> None:
-        unported = {
-            "hv_adaptive": (self.hv_adaptive, False),
-            "hv_sampler": (self.hv_sampler, "bbox"),
-            "hv_refine": (self.hv_refine, "dense"),
-            "hv_implementation": (self.hv_implementation, "ransac"),
+        ported = {
+            "hv_sampler": (self.hv_sampler, ("bbox", "cdf")),
+            "hv_refine": (self.hv_refine, ("dense", "sampled")),
+            "hv_implementation": (self.hv_implementation, ("ransac",)),
         }
-        for name, (got, ported) in unported.items():
-            if got != ported:
+        for name, (got, values) in ported.items():
+            if got not in values:
                 raise NotImplementedError(
-                    f"{name}={got!r} is not ported; only {ported!r} is")
+                    f"{name}={got!r} is not ported; only {values} are")
 
 
 def stage_class_compress(logits: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -66,6 +67,9 @@ def stage_hough_voting(aggregated: Dict[str, Any], config: PipelineConfig,
         round_hyp_num=config.hv_num_hypotheses,
         inlier_thresh=config.hv_inlier_thresh, draws=draws,
         generator=generator, cpu_generator=cpu_generator, impl=config.impl,
+        adaptive=config.hv_adaptive, confidence=config.hv_confidence,
+        max_iter=config.hv_max_iter, sampler=config.hv_sampler,
+        refine=config.hv_refine,
     )
 
 

@@ -91,10 +91,11 @@ def test_wrappers_reject_bad_tensors(cuda_device):
         vote_counts_cuda(hyps, pts[:, :3], pts, torch.zeros(2, 4, device=cuda_device), 0.999)
 
 
-def _disc_logits(dev, h=96, w=128, num_classes=3):
+def _disc_logits(dev, h=96, w=128, num_classes=3, noise=0.0):
     """NCHW logits with two discs of classes 1 and 2 whose xy fields point
-    at their centres."""
+    at their centres (plus Gaussian `noise` on the field)."""
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    rng = np.random.default_rng(1)
     cm1 = num_classes - 1
     mask = np.full((num_classes, h, w), -10.0, np.float32)
     mask[0] = 10.0
@@ -107,8 +108,8 @@ def _disc_logits(dev, h=96, w=128, num_classes=3):
         mask[0][inside], mask[cls][inside] = -10.0, 10.0
         dx, dy = cx - xs, cy - ys
         nrm = np.sqrt(dx * dx + dy * dy)
-        xy[2 * k][inside] = (dx / nrm)[inside]
-        xy[2 * k + 1][inside] = (dy / nrm)[inside]
+        xy[2 * k][inside] = (dx / nrm + noise * rng.normal(size=(h, w)))[inside]
+        xy[2 * k + 1][inside] = (dy / nrm + noise * rng.normal(size=(h, w)))[inside]
         quat[4 * k, inside] = 1.0
         z[k][inside] = np.log(800.0)
     logits = {"mask": mask, "quaternion": quat, "xy": xy, "z": z,
@@ -140,3 +141,31 @@ def test_pipeline_kernels_match_reference(cuda_device, num_hyp, max_points):
     for key in ("xy", "z", "RT"):
         torch.testing.assert_close(got[key], want[key], atol=2e-4, rtol=1e-4)
     assert got["class_ids"][0, :2].tolist() == [1, 2]
+
+
+@pytest.mark.parametrize("sampler,refine", [("bbox", "dense"), ("cdf", "sampled")])
+def test_adaptive_pipeline_kernels_match_reference(cuda_device, sampler, refine):
+    """The EVALUATING preset's adaptive vote (1000 hypotheses a round, 1024
+    points) through both kernels equals its plain run round for round, on
+    a noisy field that needs several rounds."""
+    logits = _disc_logits(cuda_device, noise=2.0)
+    cfg = PipelineConfig(max_points=1024, hv_num_hypotheses=1000, hv_adaptive=True,
+                         hv_sampler=sampler, hv_refine=refine)
+    inv_K = torch.eye(3, device=cuda_device)
+
+    def run(impl):
+        gens = dict(generator=torch.Generator(cuda_device).manual_seed(0),
+                    cpu_generator=torch.Generator().manual_seed(0))
+        return run_pipeline(logits, dataclasses.replace(cfg, impl=impl), inv_K,
+                            **gens)["aggregated"]
+
+    kernels.reset_launch_counts()
+    got = run(None)
+    rounds = got["vote_rounds"]
+    assert kernels.launch_counts() == {"cc_label": 1, "vote_count": rounds}
+    want = run("reference")
+    assert 1 < rounds == want["vote_rounds"]
+    for key in ("cc_labels", "class_ids", "hypothesis", "win_ratio"):
+        assert torch.equal(got[key], want[key]), key
+    for key in ("xy", "z", "RT"):
+        torch.testing.assert_close(got[key], want[key], atol=2e-4, rtol=1e-4)

@@ -77,12 +77,16 @@ def test_inference_path_matches_jax(seed):
 
 
 def test_unported_options_raise():
+    """Soft voting is not ported (nor are unknown sampler or refinement
+    names); the adaptive loop, the cdf sampler and the sampled refinement
+    are, and pass the check."""
     logits = {"mask": torch.zeros(1, 3, 32, 32)}
-    for field, value in (("hv_adaptive", True), ("hv_sampler", "cdf"),
-                         ("hv_refine", "sampled"), ("hv_implementation", "soft")):
+    for field, value in (("hv_implementation", "soft"), ("hv_sampler", "grid"),
+                         ("hv_refine", "none")):
         cfg = dataclasses.replace(PipelineConfig(hv_adaptive=False), **{field: value})
         with pytest.raises(NotImplementedError):
             run_pipeline(logits, cfg, torch.eye(3))
+    PipelineConfig(hv_adaptive=True, hv_sampler="cdf", hv_refine="sampled").check_ported()
 
 
 def test_inference_preset_config():
