@@ -169,16 +169,18 @@ def cc_masks(dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in batches.items()}
 
 
-def vote_inputs(dev, m, h, p, n_active, seed):
+def vote_inputs(dev, m, h, p, n_active, seed, active=None):
     """Points around a centre per slot with noisy directions at it, and
-    hypotheses scattered near the centre (so counts are large and tie)."""
+    hypotheses scattered near the centre (so counts are large and tie).
+    The first `n_active` slots are active, or those of the bool `active`."""
     rng = np.random.default_rng(seed)
     centre = rng.uniform([50, 50], [W - 50, H - 50], size=(m, 1, 2))
     pts = np.floor(centre + rng.uniform(-80, 80, size=(m, p, 2)))
     d = centre - pts + rng.normal(scale=3.0, size=(m, p, 2))
     dirs = d / np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-6)
     hyps = centre + np.round(rng.normal(scale=4.0, size=(m, h, 2)) * 2) / 2
-    active = np.arange(m) < n_active
+    if active is None:
+        active = np.arange(m) < n_active
     pvalid = (rng.random((m, p)) > 0.2) & active[:, None]
     f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
     return (f(hyps), f(pts), f(dirs), f(pvalid),
@@ -277,16 +279,44 @@ def phase_cc_kernel(dev):
     return max_err
 
 
+def scattered_slots(m, n_active, seed):
+    """A bool [m] mask of `n_active` slots drawn at random: evaluated slots
+    need not be a prefix (active = valid & npts >= 5)."""
+    active = np.zeros(m, bool)
+    active[np.random.default_rng(seed).choice(m, n_active, replace=False)] = True
+    return active
+
+
 def phase_vote_kernel(dev):
+    """K2 against its plain version at the main-path shapes and at the edges
+    of its partition (hypotheses in blocks, points split over warps and
+    staged in 1024-point tiles): H and P below one warp split, H one past a
+    block, P beyond one or two tiles, one hypothesis and one point, no
+    active slot and active slots that are not a prefix."""
     from fastposecnn_tpu_torch.ops.voting import (
         vote_counts_cuda,
         vote_counts_reference,
     )
 
-    shapes = {"main": (16, 4096, 1024, 8), "padding": (5, 1000, 777, 4)}
+    # name: (M, H, P, active slots: a count of leading slots or a mask,
+    # whether some count must be nonzero)
+    shapes = {
+        "main": (16, 4096, 1024, 8, True),
+        "padding": (5, 1000, 777, 4, True),
+        "eval_scattered": (64, 1000, 1024, scattered_slots(64, 15, seed=64), True),
+        "one_by_one": (3, 1, 1, 2, False),
+        "below_warp_split": (2, 33, 31, 2, True),
+        "past_block_and_tile": (7, 129, 2048, 5, True),
+        "past_block_and_tile_wide": (9, 1921, 2100, 7, True),
+        "none_active": (4, 256, 512, 0, False),
+    }
     out, max_err = {}, 0.0
-    for name, (m, h, p, n_active) in shapes.items():
-        hyps, pts, dirs, pv, act = vote_inputs(dev, m, h, p, n_active, seed=m)
+    for name, (m, h, p, act_spec, votes) in shapes.items():
+        if isinstance(act_spec, np.ndarray):
+            inputs = vote_inputs(dev, m, h, p, 0, seed=m, active=act_spec)
+        else:
+            inputs = vote_inputs(dev, m, h, p, act_spec, seed=m)
+        hyps, pts, dirs, pv, act = inputs
         got = vote_counts_cuda(hyps, pts, dirs, pv, 0.999, active=act)
         want = vote_counts_reference(hyps, pts, dirs, pv, 0.999, active=act)
         torch.cuda.synchronize()
@@ -295,10 +325,10 @@ def phase_vote_kernel(dev):
         if not torch.equal(got, want):
             raise AssertionError(f"vote_count differs from its plain version at "
                                  f"{name} {m}x{h}x{p}: max abs err {err}")
-        if float(got.max()) <= 0 or got[n_active:].any():
+        if (votes and float(got.max()) <= 0) or got[~act].any():
             raise AssertionError(f"vote_count {name}: no votes, or votes in "
                                  "an inactive slot")
-        out[name] = dict(shape=[m, h, p], active=n_active,
+        out[name] = dict(shape=[m, h, p], active=int(act.sum()),
                          max_count=float(got.max()))
     emit("vote_kernel", tolerance="exact", max_abs_err=max_err, shapes=out)
     return max_err
@@ -580,12 +610,45 @@ def phase_evaluate(dev, scenes=9):
     return summary, launches
 
 
-def vote_bound(active_slots, h, p, tensors):
-    """K2's least time: unfused FP32 operations on the active slots' cells,
-    or the bytes of its inputs and output, whichever is larger."""
-    op_s = active_slots * h * p * VOTE_FLOPS_PER_CELL / FP32_UNFUSED_OPS_PER_S
+def vote_bound(pv, act32, h, tensors):
+    """K2's least time: unfused FP32 operations on the cells of the active
+    slots' valid points (a point with pv = 0 adds nothing, and the kernel
+    skips it), or the bytes of its inputs and output, whichever is larger."""
+    cells = int(((pv != 0) & (act32 != 0)[:, None]).sum()) * h
+    op_s = cells * VOTE_FLOPS_PER_CELL / FP32_UNFUSED_OPS_PER_S
     byte_s = sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S
     return max(op_s, byte_s) * 1e3, "operations" if op_s >= byte_s else "bytes"
+
+
+def time_vote(dev, lib, smi, name, hyps, pts, dirs, pv, act32):
+    """K2 through its C entry point on these inputs: ms per launch (CUDA
+    events around 50 back-to-back launches), the plain version's ms, the
+    bound and the device time per CUDA kernel. Emits one `timing` line and
+    returns its fields."""
+    from fastposecnn_tpu_torch.kernels.build import check
+    from fastposecnn_tpu_torch.ops.voting import vote_counts_reference
+
+    mm, hh = hyps.shape[:2]
+    pp = pts.shape[1]
+    counts = torch.empty((mm, hh), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    t2 = float(np.float32(0.999 ** 2))
+
+    def call():
+        check(lib.fpcnn_vote_count(
+            hyps.data_ptr(), pts.data_ptr(), dirs.data_ptr(), pv.data_ptr(),
+            act32.data_ptr(), counts.data_ptr(), mm, hh, pp, t2, stream), "vote_count")
+
+    ms = loop_ms(call)
+    plain = median_ms(lambda: vote_counts_reference(
+        hyps, pts, dirs, pv, 0.999, active=act32.bool()), iters=5)
+    n_act = int(act32.sum())
+    bound, by = vote_bound(pv, act32, hh, (hyps, pts, dirs, pv, act32, counts))
+    line = dict(kernel="vote_count", shape=[mm, hh, pp], active=n_act, ms=ms,
+                plain_ms=plain, bound_ms=bound, bound_by=by,
+                device_us_by_kernel=device_us_by_kernel(call))
+    emit("timing", what=name, card=smi, **line)
+    return line
 
 
 def phase_eval_timing(dev, oracle, smi):
@@ -612,32 +675,11 @@ def phase_eval_timing(dev, oracle, smi):
         pv = (pt_valid.reshape(m, p) & active[:, None]).float()
         hyps = V.generate_hypotheses(pts, dirs, draws.pairs[0]).contiguous()
     act32 = active.to(torch.int32)
-    t2 = float(np.float32(0.999 ** 2))
     out = {}
-
-    def time_vote(name, hyps, pts, dirs, pv, act32):
-        mm, hh = hyps.shape[:2]
-        counts = torch.empty((mm, hh), dtype=torch.float32, device=dev)
-
-        def call():
-            check(lib.fpcnn_vote_count(
-                hyps.data_ptr(), pts.data_ptr(), dirs.data_ptr(), pv.data_ptr(),
-                act32.data_ptr(), counts.data_ptr(), mm, hh, pts.shape[1], t2, stream),
-                "vote_count")
-
-        ms = loop_ms(call)
-        plain = median_ms(lambda: V.vote_counts_reference(
-            hyps, pts, dirs, pv, 0.999, active=act32.bool()), iters=5)
-        n_act = int(act32.sum())
-        bound, by = vote_bound(n_act, hh, pts.shape[1], (hyps, pts, dirs, pv, act32, counts))
-        out[name] = dict(kernel="vote_count", shape=[mm, hh, pts.shape[1]],
-                         active=n_act, ms=ms, plain_ms=plain, bound_ms=bound,
-                         bound_by=by, device_us_by_kernel=device_us_by_kernel(call))
-        emit("timing", what=name, card=smi, **out[name])
-
-    time_vote("vote_count_eval_oracle_round1", hyps, pts, dirs, pv, act32)
-    h2, p2, d2, v2, a2 = vote_inputs(dev, 64, 128, 1024, 16, seed=9)
-    time_vote("vote_count_held_out_shape", h2, p2, d2, v2, a2.to(torch.int32))
+    for name, args in (
+            ("vote_count_eval_oracle_round1", (hyps, pts, dirs, pv, act32)),
+            ("vote_count_held_out_shape", vote_inputs(dev, 64, 128, 1024, 16, seed=9))):
+        out[name] = time_vote(dev, lib, smi, name, *args[:4], args[4].to(torch.int32))
 
     fg = oracle["out"]["categorical"]["mask"] != 0
     fg8 = fg.contiguous().view(torch.uint8)
@@ -700,7 +742,6 @@ def phase_timing(dev, server, image, launches, errs, smi):
     from fastposecnn_tpu_torch import pipeline as P
     from fastposecnn_tpu_torch.kernels.build import check, load_library
     from fastposecnn_tpu_torch.ops.connected_components import label_components_reference
-    from fastposecnn_tpu_torch.ops.voting import vote_counts_reference
 
     lib = load_library()
     stream = torch.cuda.current_stream().cuda_stream
@@ -739,29 +780,10 @@ def phase_timing(dev, server, image, launches, errs, smi):
              bound_by="bytes", device_us_by_kernel=by_kernel, **card)
     cc_ms, cc_plain = cc_times["served_frame"]
 
-    # K2 at the main-path shape with every slot active.
-    m, h, p = 16, 4096, 1024
-    hyps, pts, dirs, pv, act = vote_inputs(dev, m, h, p, m, seed=3)
-    act32 = act.to(torch.int32)
-    counts = torch.empty((m, h), dtype=torch.float32, device=dev)
-    t2 = float(np.float32(0.999 ** 2))
-    vote_ms = loop_ms(lambda: check(lib.fpcnn_vote_count(
-        hyps.data_ptr(), pts.data_ptr(), dirs.data_ptr(), pv.data_ptr(),
-        act32.data_ptr(), counts.data_ptr(), m, h, p, t2, stream), "vote_count"))
-    vote_plain = median_ms(lambda: vote_counts_reference(hyps, pts, dirs, pv, 0.999,
-                                                         active=act), iters=5)
-    cells = int(act.sum()) * h * p
-    vote_flops = cells * VOTE_FLOPS_PER_CELL
-    vote_bytes = sum(t.numel() * 4 for t in (hyps, pts, dirs, pv, act32, counts))
-    vote_op_s = vote_flops / FP32_UNFUSED_OPS_PER_S
-    vote_bound = max(vote_op_s, vote_bytes / HBM_BYTES_PER_S) * 1e3
-    vote_by = "operations" if vote_op_s >= vote_bytes / HBM_BYTES_PER_S else "bytes"
-    vote_by_kernel = device_us_by_kernel(lambda: check(lib.fpcnn_vote_count(
-        hyps.data_ptr(), pts.data_ptr(), dirs.data_ptr(), pv.data_ptr(),
-        act32.data_ptr(), counts.data_ptr(), m, h, p, t2, stream), "vote_count"))
-    emit("timing", kernel="vote_count", shape=[m, h, p], ms=vote_ms,
-         plain_ms=vote_plain, bound_ms=vote_bound, bound_by=vote_by,
-         cells=cells, flops=vote_flops, device_us_by_kernel=vote_by_kernel, **card)
+    # K2 at the main-path shape with every slot active (its best case).
+    hyps, pts, dirs, pv, act = vote_inputs(dev, 16, 4096, 1024, 16, seed=3)
+    vote = time_vote(dev, lib, smi, "vote_count_served_shape", hyps, pts, dirs, pv,
+                     act.to(torch.int32))
 
     frame_ms = median_ms(lambda: server(image), iters=10)
     emit("timing", what="served_frame", shape=[1, 3, H, W], ms=frame_ms,
@@ -799,10 +821,31 @@ def phase_timing(dev, server, image, launches, errs, smi):
         dict(name="vote_count", route="cuda",
              source="fastposecnn_tpu_torch/kernels/vote_count.cu",
              replaces="fastposecnn_tpu/ops/voting.py:282",
-             launches=launches["vote_count"], max_abs_err=errs["vote_count"], ms=vote_ms,
-             plain_ms=vote_plain, bound_ms=vote_bound, bound_by=vote_by,
-             library_ms=None),
+             launches=launches["vote_count"], max_abs_err=errs["vote_count"],
+             ms=vote["ms"], plain_ms=vote["plain_ms"], bound_ms=vote["bound_ms"],
+             bound_by=vote["bound_by"], library_ms=None),
     ]
+
+
+def phase_vote_scan(dev, smi):
+    """K2 with few active slots, after the served frame is timed (so that
+    line runs after the same work as before these lines were added): the
+    main-path shape with 4 of 16 slots active, as a scene with a handful of
+    objects gives it, and the evaluation shape with the first 0, 1, 4, 15,
+    32 and 64 of 64 slots active (its fixed costs against the cells' work)."""
+    from fastposecnn_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    out = {}
+    for name, (m, h, n_active) in (
+            ("vote_count_served_shape_4_active", (16, 4096, 4)),
+            *((f"vote_count_eval_shape_{n}_active", (64, 1000, n))
+              for n in (0, 1, 4, 15, 32, 64))):
+        hyps, pts, dirs, pv, act = vote_inputs(dev, m, h, 1024, n_active,
+                                               seed=3 if m == 16 else 9)
+        out[name] = time_vote(dev, lib, smi, name, hyps, pts, dirs, pv,
+                              act.to(torch.int32))
+    return out
 
 
 def main():
@@ -822,15 +865,16 @@ def main():
     _, eval_launches = phase_evaluate(dev)
     eval_times = phase_eval_timing(dev, oracle, smi)
     kernels = phase_timing(dev, server, image, launches, errs, smi)
+    other_times = {**eval_times, **phase_vote_scan(dev, smi)}
     for k in kernels:
         name = k["name"]
         k["launches_by_path"] = {"serve": launches[name],
                                  "eval_oracle": oracle["launches"][name],
                                  "evaluate": eval_launches[name]}
-        k["at_eval_shapes"] = [dict(what=what, **{f: v[f] for f in (
+        k["at_other_shapes"] = [dict(what=what, **{f: v[f] for f in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by")})
-            for what, v in eval_times.items() if v.get("kernel") == name]
-        times = [k] + k["at_eval_shapes"]
+            for what, v in other_times.items() if v.get("kernel") == name]
+        times = [k] + k["at_other_shapes"]
         if not all(math.isfinite(t[f]) for t in times
                    for f in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"non-finite timing for {name}")

@@ -62,14 +62,33 @@ def test_cc_kernel_matches_reference(cuda_device, name):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("m,h,p", [(16, 4096, 1024), (5, 1000, 777)])
+def _vote_active(m, h, p):
+    """Slot 1 inactive; at the evaluation shape 15 slots drawn at random (not
+    a prefix), and at 4x256x512 no slot at all."""
+    if (m, h, p) == (64, 1000, 1024):
+        active = np.zeros(m, bool)
+        active[np.random.default_rng(64).choice(m, 15, replace=False)] = True
+        return active
+    if (m, h, p) == (4, 256, 512):
+        return np.zeros(m, bool)
+    return np.arange(m) != 1
+
+
+@pytest.mark.parametrize("m,h,p", [
+    (16, 4096, 1024), (5, 1000, 777),
+    # the edges of K2's partition: evaluation slots that are no prefix, one
+    # hypothesis and one point, H and P below one warp split, H one past a
+    # block of hypotheses and P beyond one or two 1024-point tiles, no
+    # active slot
+    (64, 1000, 1024), (3, 1, 1), (2, 33, 31), (7, 129, 2048), (9, 1921, 2100),
+    (4, 256, 512)])
 def test_vote_kernel_matches_reference(cuda_device, m, h, p):
     rng = np.random.default_rng(m)
     pts = rng.uniform(0, 32, size=(m, p, 2)).astype(np.float32)
     hyps = rng.uniform(0, 32, size=(m, h, 2)).astype(np.float32)
     dirs = rng.normal(size=(m, p, 2)).astype(np.float32)
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    active = np.arange(m) != 1
+    active = _vote_active(m, h, p)
     pvalid = ((rng.random((m, p)) > 0.1) & active[:, None]).astype(np.float32)
     args = [torch.from_numpy(x).to(cuda_device) for x in (hyps, pts, dirs, pvalid)]
     act = torch.from_numpy(active).to(cuda_device)
@@ -77,7 +96,7 @@ def test_vote_kernel_matches_reference(cuda_device, m, h, p):
     want = vote_counts(*args, 0.999, active=act, impl="reference")
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert not got[1].any()
+    assert not got[~act].any()
 
 
 def test_wrappers_reject_bad_tensors(cuda_device):

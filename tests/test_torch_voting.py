@@ -62,6 +62,38 @@ def test_vote_counts_reference_matches_jax(m, h, p, inactive, integer):
         assert (got == got.max(axis=1, keepdims=True)).sum(axis=1).max() > 1
 
 
+@pytest.mark.parametrize(
+    "m,h,p,inactive",
+    [
+        (3, 1, 200, (1,)),         # one hypothesis
+        (3, 50, 1, (1,)),          # one point
+        (2, 33, 31, ()),           # H and P below one warp split of the CUDA kernel
+        (7, 129, 2048, (2, 5)),    # H one past a block; P two whole tiles
+        (4, 256, 512, (0, 1, 2, 3)),  # no slot active
+    ],
+)
+def test_vote_counts_reference_matches_jax_at_edges(m, h, p, inactive):
+    """The plain version equals JAX at the shapes where the CUDA kernel's
+    partition has edges; unlike the test above, a case may have no votes."""
+    rng = np.random.default_rng(m * 1000 + h + p)
+    hyps, pts, dirs, pvalid, active = vote_inputs(rng, m, h, p, inactive)
+    # Point 0 gets a direction again, with up to 4 hypotheses on its ray, so
+    # that the one-point and one-hypothesis cases vote too.
+    dirs[:, 0] = [0.6, 0.8]
+    pvalid[:, 0] = active
+    k = min(h, 4)
+    hyps[:, :k] = pts[:, :1] + np.arange(1, k + 1, dtype=np.float32)[:, None] * dirs[:, :1]
+    got = tv.vote_counts_reference(*map(torch.from_numpy, (hyps, pts, dirs, pvalid)),
+                                   0.999, active=torch.from_numpy(active)).numpy()
+    j = [jnp.asarray(x, jnp.float32) for x in (hyps, pts, dirs, pvalid)]
+    np.testing.assert_array_equal(got, np.asarray(jv.vote_counts_jnp(*j, 0.999)))
+    np.testing.assert_array_equal(got, np.asarray(jv.vote_counts_pallas(
+        *j, 0.999, interpret=True, active=jnp.asarray(active))))
+    assert got.shape == (m, h)
+    assert not got[list(inactive)].any()
+    assert (got[active, 0] >= 1).all()
+
+
 def test_vote_counts_dispatch_on_cpu():
     rng = np.random.default_rng(5)
     args = [torch.from_numpy(x) for x in vote_inputs(rng, 2, 16, 32)[:4]]
