@@ -7,12 +7,20 @@ fastposecnn_tpu_torch/_build/, reused by a later run), holds each kernel
 against its plain PyTorch version, runs a crafted scene through the
 INFERENCE pipeline, runs the EVALUATING preset (adaptive RANSAC, matching,
 float64 errors) on perfect logits of synthetic scenes through the kernels
-and through their plain versions, serves a few full-width requests through
-`InferenceServer` and evaluates a few synthetic scenes through the
-evaluate CLI (the two main paths: the kernels' launch counters are reset
-just before each and read just after), and times the kernels at the
-served and the evaluated shapes, their plain versions, the adaptive loop's
-host syncs and one served frame with CUDA events.
+and through their plain versions, holds the vote-variant probe's kernels
+(P1 on the tensor cores, P2 on the CUDA cores) against their plain versions
+and the rounding band, serves a few full-width requests through
+`InferenceServer`, evaluates a few synthetic scenes through the evaluate
+CLI, runs the probe (`probes/vote_variants.py`) and the held-out recipe
+of BASELINE.md with the trained FULL_c5 checkpoint (the paths: the
+kernels' launch counters are reset just before each and read just after),
+measures what TF32 would change in the network (and checks that the entry
+points' float32 does not reuse a convolution algorithm that cuDNN's
+heuristics chose outside them), and times the kernels at
+the served and the evaluated shapes, their plain versions, the adaptive
+loop's host syncs and one served frame with CUDA events. Everything runs
+in full float32 (TF32 off), as the port's entry points compute, but for
+the network's TF32 timing, which sets the flags around a direct call.
 
 Every phase prints one flushed JSON line before the next begins. Any failure
 prints a traceback to stderr and exits non-zero; only a run in which every
@@ -21,29 +29,46 @@ phase passed ends with the line
 A watchdog dumps every thread's stack and exits non-zero after 900 s.
 """
 
+import contextlib
 import dataclasses
 import faulthandler
+import io
 import json
 import math
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from fastposecnn_tpu_torch.utils.timer import (
+    FP32_UNFUSED_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    device_us_by_kernel,
+    loop_ms,
+    median_ms,
+)
+
 WATCHDOG_S = 900
 H, W = 480, 640
-# Published H100 SXM peaks (NVIDIA data sheet), at the full 700 W power
-# limit: HBM bytes/s, and FP32 (non tensor core) 67 TFLOP/s, which counts a
-# fused multiply-add as two operations. The kernels are built with
-# -fmad=false, so each FP32 add or multiply is one instruction, issued at
-# half that rate.
-HBM_BYTES_PER_S = 3.35e12
-FP32_UNFUSED_OPS_PER_S = 67e12 / 2
 # FP32 arithmetic per (m, h, p) cell of the vote count: 2 sub, 6 mul, 3 add.
 VOTE_FLOPS_PER_CELL = 11
+# The kernels the served frame and the evaluated batch run.
+PATH_KERNELS = ("cc_label", "vote_count")
+# The held-out recipe (BASELINE.md:22-29) through the port on the CPU, in
+# float32: 261 matched instances, pooled geodesic mean in degrees
+# (`python -m fastposecnn_tpu_torch.cli.evaluate --device cpu` with the
+# arguments of `phase_held_out`). The card's float32 mean lies a few 1e-6
+# degrees from it, its TF32 mean about 4e-3 away (PERF.md): the tolerance
+# lies between, so that a network run in TF32 fails the phase.
+HELD_OUT_CKPT = "evidence/rot_demo/ckpt_FULL_c5.npz"
+HELD_OUT_CPU_INSTANCES = 261
+HELD_OUT_CPU_MEAN_DEG = 22.201571812990487
+HELD_OUT_TOL_DEG = 2e-4
 
 
 def emit(phase, **fields):
@@ -60,23 +85,6 @@ def nvidia_smi():
 def set_tf32(matmul, cudnn):
     torch.backends.cuda.matmul.allow_tf32 = matmul
     torch.backends.cudnn.allow_tf32 = cudnn
-
-
-def median_ms(fn, iters=20, warmup=3):
-    """Median of `iters` CUDA-event timings of fn()."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def paired_ms(fn_a, fn_b, pairs=10):
@@ -97,29 +105,6 @@ def paired_ms(fn_a, fn_b, pairs=10):
             end.synchronize()
             times[k].append(start.elapsed_time(end))
     return times
-
-
-def device_us_by_kernel(fn, calls=20):
-    """Device microseconds per call of each CUDA kernel that fn() launches,
-    from a torch.profiler trace of `calls` calls (an empty dict if the
-    trace holds no device time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / calls for e in prof.key_averages()
-            if e.self_device_time_total > 0}
-
-
-def loop_ms(fn, launches=50, repeats=5):
-    """Device time per call of a launch-only fn (no host syncs inside): CUDA
-    events around `launches` back-to-back calls, median of `repeats`."""
-    return median_ms(lambda: [fn() for _ in range(launches)],
-                     iters=repeats, warmup=1) / launches
 
 
 # -----------------------------------------------------------------------------
@@ -334,6 +319,54 @@ def phase_vote_kernel(dev):
     return max_err
 
 
+def phase_vote_variants(dev):
+    """The vote-variant probe's kernels against their plain versions on the
+    TPU script's inputs (`make_inputs`, seed 0) at its shape, at K2's
+    evaluated shape and at the edges of their tiles: P2 exactly equal, P1
+    inside the rounding band derived for 3xTF32. At the two full shapes P2
+    and the plain P1 also lie inside the float32 band, and P1's counts that
+    differ from its plain version's are counted. Returns each kernel's
+    largest difference from its plain version."""
+    from fastposecnn_tpu_torch.probes import vote_variants as V
+
+    shapes = {"script": (16, 4096, 1024), "eval": (64, 1000, 1024),
+              "one_by_one": (3, 1, 1), "ragged_under_tile": (2, 33, 31),
+              "past_tile": (9, 1921, 2100)}
+    full = ("script", "eval")
+    out, errs = {}, {"vote_expanded_mm": 0.0, "vote_expanded_bcast": 0.0}
+    for name, (m, h, p) in shapes.items():
+        args = [torch.from_numpy(a).to(dev) for a in V.make_inputs(m, h, p, seed=0)]
+        p1 = V.vote_counts_expanded_mm_cuda(*args)
+        p2 = V.vote_counts_expanded_bcast_cuda(*args)
+        plain1 = V.vote_counts_expanded_mm_reference(*args)
+        plain2 = V.vote_counts_expanded_bcast_reference(*args)
+        lo, hi = V.expanded_vote_band(*args, c=V.BAND_C_3XTF32)
+        torch.cuda.synchronize()
+        p1_err = float((p1 - plain1).abs().max())
+        errs["vote_expanded_mm"] = max(errs["vote_expanded_mm"], p1_err)
+        if not torch.equal(p2, plain2):
+            raise AssertionError(f"vote_expanded_bcast differs from its plain version "
+                                 f"at {name} {m}x{h}x{p}")
+        if not bool(((lo <= p1) & (p1 <= hi)).all()):
+            raise AssertionError(f"vote_expanded_mm leaves the 3xTF32 band at {name}")
+        line = dict(shape=[m, h, p], max_count=float(plain2.max()),
+                    p1_vs_plain_max_abs=p1_err,
+                    p1_vs_plain_cells=int((p1 != plain1).sum()),
+                    band_3xtf32_width_mean=float((hi - lo).mean()))
+        if name in full:
+            lo8, hi8 = V.expanded_vote_band(*args, c=V.BAND_C_FP32)
+            in8 = {k: bool(((lo8 <= x) & (x <= hi8)).all())
+                   for k, x in (("p1", p1), ("p2", p2), ("plain_p1", plain1))}
+            if not (in8["p2"] and in8["plain_p1"]):
+                raise AssertionError(f"float32 counts leave the float32 band at {name}: {in8}")
+            line.update(in_fp32_band=in8, band_fp32_width_mean=float((hi8 - lo8).mean()))
+        out[name] = line
+    emit("vote_variants", tolerance=dict(vote_expanded_bcast="exact",
+                                         vote_expanded_mm="inside expanded_vote_band, c = 32"),
+         max_abs_err=errs, shapes=out)
+    return errs
+
+
 def phase_known_scene(dev):
     from fastposecnn_tpu_torch import config as C
     from fastposecnn_tpu_torch import constants, kernels
@@ -369,7 +402,7 @@ def phase_known_scene(dev):
     z_err = np.abs(agg["z"][0, :n].cpu().numpy() / [o["z"] for o in objects] - 1)
     if not torch.isfinite(agg["RT"]).all() or z_err.max() > 1e-4:
         raise AssertionError("RT not finite or z wrong")
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in PATH_KERNELS) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     if float(agg["win_ratio"].max()) <= 0:
         raise AssertionError("no votes on the known scene")
@@ -400,7 +433,8 @@ def phase_known_scene(dev):
 
 def phase_serve(dev, requests=5):
     """The main path: `InferenceServer` at full width answers `requests`
-    seeded random 480x640 images with seeded random weights."""
+    seeded random 480x640 images with seeded random weights. The caller
+    leaves both TF32 flags on, and the network must run with both off."""
     from fastposecnn_tpu_torch import kernels
     from fastposecnn_tpu_torch.serve import InferenceServer
 
@@ -408,23 +442,33 @@ def phase_serve(dev, requests=5):
     gen = torch.Generator(dev).manual_seed(123)
     images = [torch.randn((1, 3, H, W), generator=gen, device=dev)
               for _ in range(requests)]
+    seen = []  # the TF32 and cuDNN flags at each call of the network
+    hook = server.net.register_forward_pre_hook(lambda *_: seen.append(
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)))
     torch.cuda.synchronize()
+    set_tf32(True, True)
     kernels.reset_launch_counts()
     answers = [server(img) for img in images]
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
+    set_tf32(False, False)
+    hook.remove()
+    if seen != [(False, False, True, True)] * requests:
+        raise AssertionError(f"the served frames ran the network with flags {seen}")
     for mask, class_ids, xy, z, RT in answers:
         shapes = [tuple(t.shape) for t in (mask, class_ids, xy, z, RT)]
         if shapes != [(1, H, W), (1, 16), (1, 16, 2), (1, 16), (1, 16, 4, 4)]:
             raise AssertionError(f"served shapes {shapes}")
         if not all(bool(torch.isfinite(t).all()) for t in (xy, z, RT)):
             raise AssertionError("served outputs are not finite")
-    if min(launches.values()) < requests:
+    if min(launches[k] for k in PATH_KERNELS) < requests:
         raise AssertionError(f"the main path skipped a kernel: {launches}")
     emit("serve", requests=requests, launches=launches,
          valid_instances=[int((a[1] > 0).sum()) for a in answers],
-         tf32=dict(matmul=torch.backends.cuda.matmul.allow_tf32,
-                   cudnn=torch.backends.cudnn.allow_tf32))
+         tf32_of_caller=dict(matmul=True, cudnn=True),
+         in_network=dict(tf32_matmul=False, tf32_cudnn=False, cudnn_benchmark=True,
+                         cudnn_deterministic=True))
     return server, images[0], launches
 
 
@@ -596,7 +640,7 @@ def phase_evaluate(dev, scenes=9):
             summary = evaluate.main(argv)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in PATH_KERNELS) < 1:
         raise AssertionError(f"phase A skipped a kernel: {launches}")
     if summary["frames"] != scenes:
         raise AssertionError(f"evaluated {summary['frames']} of {scenes} scenes")
@@ -604,7 +648,9 @@ def phase_evaluate(dev, scenes=9):
     emit("evaluate_scenes", scenes=scenes, seconds=summary["scene_seconds"])
     emit("evaluate", frames=summary["frames"], batches=summary["batches"],
          seconds=summary["seconds"],
-         frames_per_s=summary["frames_per_s"], vote_rounds=summary["vote_rounds"],
+         frames_per_s=summary["frames_per_s"],
+         frames_per_s_after_first_batch=summary["frames_per_s_after_first_batch"],
+         vote_rounds=summary["vote_rounds"],
          stage_ms=summary["stage_ms"], launches=launches,
          summary_lines=[ln for ln in lines if ln.startswith(("phase", "3D-IoU", "rotation"))])
     return summary, launches
@@ -740,6 +786,7 @@ def phase_eval_timing(dev, oracle, smi):
 
 def phase_timing(dev, server, image, launches, errs, smi):
     from fastposecnn_tpu_torch import pipeline as P
+    from fastposecnn_tpu_torch.device import full_float32
     from fastposecnn_tpu_torch.kernels.build import check, load_library
     from fastposecnn_tpu_torch.ops.connected_components import label_components_reference
 
@@ -751,7 +798,7 @@ def phase_timing(dev, server, image, launches, errs, smi):
     # path's input: the kernels line), on the known scene's and on an
     # all-foreground mask.
     logits, _ = known_scene(dev)
-    with torch.inference_mode():
+    with torch.inference_mode(), full_float32():
         served_fg = P.stage_class_compress(server.net(image))["mask"] != 0
     cc_masks_timed = {
         "known_scene": logits["mask"].argmax(1) != 0,
@@ -790,10 +837,11 @@ def phase_timing(dev, server, image, launches, errs, smi):
          fps=1e3 / frame_ms, **card)
 
     # The served frame by stage, each timed alone on the previous stage's
-    # output; and the post-network stages on the 6-object known scene.
+    # output, in full float32 as the server runs them; and the post-network
+    # stages on the 6-object known scene.
     cfg, gens = server.config, dict(generator=server.generator,
                                     cpu_generator=server.cpu_generator)
-    with torch.inference_mode():
+    with torch.inference_mode(), full_float32():
         out = server.net(image)
         cat = P.stage_class_compress(out)
         agg = P.stage_aggregate(cat, cfg)
@@ -848,29 +896,250 @@ def phase_vote_scan(dev, smi):
     return out
 
 
+def phase_probe(dev):
+    """The probe path: `probes.vote_variants.main` (K2, P1 and P2 at the
+    script's 16x4096x1024 and at 64x1000x1024, each wrapper called once a
+    shape, the timed launches uncounted), with the launch counters reset
+    just before and read just after. Its own JSON lines are printed as it
+    runs."""
+    from fastposecnn_tpu_torch import kernels
+    from fastposecnn_tpu_torch.probes import vote_variants as V
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lines = V.main([])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    n = len(V.SHAPES)
+    want = {"cc_label": 0, "vote_count": n, "vote_expanded_mm": n, "vote_expanded_bcast": n}
+    if launches != want:
+        raise AssertionError(f"probe launches {launches}, expected {want}")
+    for ln in lines:
+        if not ln["in_band"]:
+            raise AssertionError(f"probe: {ln['kernel']} at {ln['shape']} leaves the band")
+        if not all(isinstance(ln[f], float) and math.isfinite(ln[f])
+                   for f in ("us", "plain_us", "bound_us")):
+            raise AssertionError(f"probe: no time for {ln['kernel']} at {ln['shape']}")
+    emit("probe", launches=launches, lines=len(lines))
+    return lines, launches
+
+
+def phase_held_out(dev):
+    """The held-out recipe of BASELINE.md:22-29 (128 seed-99 pose-cue scenes
+    at 224x320, the trained FULL_c5 checkpoint, 128 hypotheses a round)
+    through the evaluate CLI on the card, in float32: as many matched
+    instances as on the CPU, and a pooled geodesic mean within
+    HELD_OUT_TOL_DEG of the CPU's (the rotation does not pass through the
+    vote, so the vote's draws do not matter). Then the same run with the
+    network in TF32, as the CLI ran before it computed in float32 (its
+    float32 context swapped for one that turns TF32 on), which must land
+    outside that tolerance: the check can tell the two apart."""
+    from fastposecnn_tpu_torch import kernels
+    from fastposecnn_tpu_torch.cli import evaluate
+
+    ckpt = pathlib.Path(__file__).resolve().parent / HELD_OUT_CKPT
+    if not ckpt.is_file():
+        raise FileNotFoundError(f"{ckpt}: the held-out phase needs the trained checkpoint")
+
+    def run():
+        with tempfile.TemporaryDirectory(prefix="fpcnn_held_out_") as out_dir:
+            argv = ["--synthetic", "128", "--synthetic_seed", "99", "--synthetic_pose_cues",
+                    "--IMAGE_HEIGHT", "224", "--IMAGE_WIDTH", "320", "--BATCH_SIZE", "8",
+                    "--TRAIN_SIZE", "1024", "--VALID_SIZE", "128", "--MAX_INSTANCES", "8",
+                    "--MAX_VOTE_POINTS", "1024", "--HV_NUM_OF_HYPOTHESES", "128",
+                    "--CHECKPOINT", str(ckpt), "--output", out_dir, "--vote_seed", "0"]
+            with contextlib.redirect_stdout(io.StringIO()):
+                return evaluate.main(argv)
+
+    @contextlib.contextmanager
+    def tf32_on():
+        set_tf32(True, True)
+        try:
+            yield
+        finally:
+            set_tf32(False, False)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = run()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    float32_context, evaluate.full_float32 = evaluate.full_float32, tf32_on
+    try:
+        tf32 = run()
+    finally:
+        evaluate.full_float32 = float32_context
+    if min(launches[k] for k in PATH_KERNELS) < 1:
+        raise AssertionError(f"held-out: a kernel was not launched: {launches}")
+    diff = summary["geodesic_mean_deg"] - HELD_OUT_CPU_MEAN_DEG
+    if summary["instances"] != HELD_OUT_CPU_INSTANCES or not abs(diff) < HELD_OUT_TOL_DEG:
+        raise AssertionError(
+            f"held-out: {summary['instances']} instances, geodesic mean "
+            f"{summary['geodesic_mean_deg']!r} deg; the CPU gives {HELD_OUT_CPU_INSTANCES} "
+            f"and {HELD_OUT_CPU_MEAN_DEG!r} (tolerance {HELD_OUT_TOL_DEG})")
+    tf32_diff = tf32["geodesic_mean_deg"] - HELD_OUT_CPU_MEAN_DEG
+    if abs(tf32_diff) < HELD_OUT_TOL_DEG:
+        raise AssertionError(
+            f"held-out: the TF32 run lands {tf32_diff!r} deg from the CPU, inside the "
+            f"tolerance {HELD_OUT_TOL_DEG}: the phase cannot tell TF32 from float32")
+    emit("held_out", checkpoint=HELD_OUT_CKPT, frames=summary["frames"],
+         instances=summary["instances"], geodesic_mean_deg=summary["geodesic_mean_deg"],
+         cpu_geodesic_mean_deg=HELD_OUT_CPU_MEAN_DEG, diff_deg=diff,
+         tolerance_deg=HELD_OUT_TOL_DEG, chord_mean_deg=summary["chord_mean_deg"],
+         table_aps_mean=summary["table_aps_mean"], vote_rounds=summary["vote_rounds"],
+         seconds=seconds, launches=launches,
+         with_tf32=dict(instances=tf32["instances"],
+                        geodesic_mean_deg=tf32["geodesic_mean_deg"],
+                        diff_from_cpu_deg=tf32_diff,
+                        table_aps_mean=tf32["table_aps_mean"]))
+
+
+def phase_network_precision(dev, server, smi, pairs=10):
+    """What computing in float32 costs and buys in the network alone at
+    480x640: the served network (seeded random weights, random images) and
+    the trained FULL_c5 network (pose-cue synthetic scenes), at batch 1 (a
+    served frame) and 3 (an evaluated batch), timed in `full_float32()`, as
+    the entry points run it, and with TF32 on and cuDNN's heuristics
+    (torch's defaults, as the entry points ran before), in interleaved
+    pairs, with the largest absolute difference of each head's outputs
+    between the two. Then the order check at batch 2, a shape no other
+    phase runs: one call in float32 with cuDNN's heuristics (torch's
+    defaults but TF32 off), which leaves the algorithms they chose (a slow
+    FFT one among them) in PyTorch's cache, and after it the same network
+    in `full_float32()`, which must not reuse them: at most 1.5 times its
+    float32 time at batch 3."""
+    from fastposecnn_tpu_torch.data.loader import upcast_image
+    from fastposecnn_tpu_torch.data.synthetic import SceneConfig, generate_scene
+    from fastposecnn_tpu_torch.device import full_float32
+    from fastposecnn_tpu_torch.serve import InferenceServer
+
+    rng = np.random.default_rng(99)
+    cfg = SceneConfig(height=H, width=W, max_instances=16, max_scene_instances=6,
+                      render_pose_cues=True)
+    color = np.stack([(np.clip(generate_scene(rng, cfg)["image"], 0, 1) * 255)
+                      .astype(np.uint8) for _ in range(3)])
+    trained = InferenceServer(
+        weights=pathlib.Path(__file__).resolve().parent / HELD_OUT_CKPT, device="cuda")
+    gen = torch.Generator(dev).manual_seed(321)
+    nets = {"random_weights": (server.net, torch.randn((3, 3, H, W), generator=gen,
+                                                        device=dev)),
+            "FULL_c5": (trained.net, upcast_image(torch.from_numpy(color).to(dev)))}
+
+    @contextlib.contextmanager
+    def heuristics(tf32):
+        benchmark = torch.backends.cudnn.benchmark
+        set_tf32(tf32, tf32)
+        torch.backends.cudnn.benchmark = False
+        try:
+            yield
+        finally:
+            set_tf32(False, False)
+            torch.backends.cudnn.benchmark = benchmark
+
+    out = {}
+    with torch.inference_mode():
+        for name, (net, images) in nets.items():
+            for b in (1, 3):
+                x = images[:b]
+
+                def tf32(net=net, x=x):
+                    with heuristics(True):
+                        return net(x)
+
+                def float32(net=net, x=x):
+                    with full_float32():
+                        return net(x)
+
+                on, off = tf32(), float32()
+                t_on, t_off = paired_ms(tf32, float32, pairs=pairs)
+                out[f"{name}_b{b}"] = dict(
+                    ms_tf32=statistics.median(t_on), ms_float32=statistics.median(t_off),
+                    max_abs_diff={k: float((on[k] - off[k]).abs().max()) for k in off},
+                    max_abs_float32={k: float(off[k].abs().max()) for k in off},
+                    mask_argmax_pixels_differing=int(
+                        (on["mask"].argmax(1) != off["mask"].argmax(1)).sum()))
+        net, images = nets["random_weights"]
+        x = images[:2]
+        with heuristics(False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net(x)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+
+        def float32_b2():
+            with full_float32():
+                net(x)
+
+        after_ms = median_ms(float32_b2, iters=5, warmup=1)
+        limit_ms = 1.5 * out["random_weights_b3"]["ms_float32"]
+        out["order_check_b2"] = dict(float32_heuristics_first_call_ms=first_ms,
+                                     full_float32_after_ms=after_ms, limit_ms=limit_ms)
+        if not after_ms <= limit_ms:
+            raise AssertionError(
+                f"full_float32() at batch 2 takes {after_ms} ms after a float32 call "
+                f"under cuDNN's heuristics ({first_ms} ms), over {limit_ms} ms: it "
+                f"reused the heuristics' algorithms")
+    emit("network_precision", hw=[H, W], pairs=pairs, card=smi, **out)
+    return out
+
+
+def probe_kernel_lines(probe_lines, probe_launches, errs):
+    """The `kernels` entries of P1 and P2 (at the script's shape), and the
+    probe's other lines as `at_other_shapes` entries."""
+    sources = {"vote_expanded_mm": ("vote_expanded_mma.cu", "scripts/probe_vote_variants.py:106"),
+               "vote_expanded_bcast": ("vote_expanded_bcast.cu",
+                                       "scripts/probe_vote_variants.py:165")}
+    others, entries = {}, []
+    for ln in probe_lines:
+        name, shape = ln["kernel"], ln["shape"]
+        times = dict(kernel=name, shape=shape, ms=ln["us"] / 1e3,
+                     plain_ms=ln["plain_us"] / 1e3, bound_ms=ln["bound_us"] / 1e3,
+                     bound_by=ln["bound_by"])
+        if name in sources and tuple(shape) == (16, 4096, 1024):
+            src, replaces = sources[name]
+            entries.append(dict(
+                name=name, route="cuda", source=f"fastposecnn_tpu_torch/kernels/{src}",
+                replaces=replaces, launches=probe_launches[name], max_abs_err=errs[name],
+                ms=times["ms"], plain_ms=times["plain_ms"], bound_ms=times["bound_ms"],
+                bound_by=times["bound_by"], library_ms=None, main_path="probe"))
+        else:
+            others[f"probe_{name}_{'x'.join(map(str, shape))}"] = times
+    return entries, others
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     kind, smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
-    defaults = (torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32)
-    set_tf32(False, False)  # the parity phases compare in full float32
+    # Float32 throughout, as the port's entry points compute (they turn TF32
+    # off themselves); only the network's TF32 timing sets the flags.
+    set_tf32(False, False)
     errs = {"cc_label": phase_cc_kernel(dev),
-            "vote_count": phase_vote_kernel(dev)}
+            "vote_count": phase_vote_kernel(dev),
+            **phase_vote_variants(dev)}
     phase_known_scene(dev)
     oracle = phase_eval_oracle(dev)
-    set_tf32(*defaults)  # serve, evaluate and time as a user would
     server, image, launches = phase_serve(dev)
     _, eval_launches = phase_evaluate(dev)
     eval_times = phase_eval_timing(dev, oracle, smi)
     kernels = phase_timing(dev, server, image, launches, errs, smi)
+    for k in kernels:
+        k["main_path"] = "serve"
     other_times = {**eval_times, **phase_vote_scan(dev, smi)}
+    probe_lines, probe_launches = phase_probe(dev)
+    probe_entries, probe_times = probe_kernel_lines(probe_lines, probe_launches, errs)
+    kernels += probe_entries
+    other_times.update(probe_times)
+    phase_held_out(dev)
+    phase_network_precision(dev, server, smi)
     for k in kernels:
         name = k["name"]
         k["launches_by_path"] = {"serve": launches[name],
                                  "eval_oracle": oracle["launches"][name],
-                                 "evaluate": eval_launches[name]}
+                                 "evaluate": eval_launches[name],
+                                 "probe": probe_launches[name]}
         k["at_other_shapes"] = [dict(what=what, **{f: v[f] for f in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by")})
             for what, v in other_times.items() if v.get("kernel") == name]

@@ -34,7 +34,7 @@ import torch
 from fastposecnn_tpu_torch import config as C
 from fastposecnn_tpu_torch import constants, eval_host
 from fastposecnn_tpu_torch import pipeline as P
-from fastposecnn_tpu_torch.device import resolve_device
+from fastposecnn_tpu_torch.device import full_float32, resolve_device
 from fastposecnn_tpu_torch.utils.timer import StageTimer, report_runtime
 
 APS_NUM_OF_POINTS = 50
@@ -67,10 +67,12 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
     """Phase A: forward, match and per-class raw errors over `batches`
     (collated numpy batches, None for an all-rejected one).
 
+    The network and the stages after it run in full float32 (TF32 off).
     Batch `bi` votes with `draws_for(bi)` when given, else with fresh draws
     from `generator` and `cpu_generator`. Returns (raw errors
     {metric: {class: float64 array}}, stats {frames, batches, vote_rounds
-    per batch, seconds})."""
+    per batch, seconds, and the first batch's frames and seconds, which
+    include cuDNN timing its algorithms for the batch's shape})."""
     from fastposecnn_tpu_torch.data.loader import pad_batch, upcast_batch
     from fastposecnn_tpu_torch.ops.matching import gather_matched, match_instances
 
@@ -86,7 +88,7 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
         batch, n_real = pad_batch(batch, hp.BATCH_SIZE)
         db = upcast_batch(batch, device)
         draws = draws_for(bi) if draws_for is not None else None
-        with torch.inference_mode():
+        with torch.inference_mode(), full_float32():
             with timers["model"].measure():
                 logits = net(db["image"])
             with timers["class_compress"].measure():
@@ -113,6 +115,9 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
         stats["frames"] += n_real
         stats["batches"] += 1
         stats["vote_rounds"].append(agg["vote_rounds"])
+        if stats["batches"] == 1:
+            stats["first_batch_frames"] = n_real
+            stats["first_batch_seconds"] = time.perf_counter() - t0
     stats["seconds"] = time.perf_counter() - t0
     raw = {metric: {c: np.concatenate(v) if v else np.zeros((0,))
                     for c, v in per.items()}
@@ -301,12 +306,17 @@ def main(argv=None) -> dict:
         np.savez(results_path,
                  **{f"{m}/{c}": v for m, per in raw.items() for c, v in per.items()})
         fps = stats["frames"] / stats["seconds"] if stats["seconds"] > 0 else 0.0
+        fps_after, after = None, ""
+        if stats["batches"] > 1:
+            fps_after = ((stats["frames"] - stats["first_batch_frames"])
+                         / (stats["seconds"] - stats["first_batch_seconds"]))
+            after = f" ({fps_after:.2f} after the first batch)"
         print(f"phase A: wrote {results_path}")
         print(f"phase A: {stats['frames']} frames in {stats['batches']} batches "
               f"of {hp.BATCH_SIZE} on {device}, {stats['seconds']:.2f} s, "
-              f"{fps:.2f} frames/s; vote rounds per batch {stats['vote_rounds']}")
+              f"{fps:.2f} frames/s{after}; vote rounds per batch {stats['vote_rounds']}")
         report_runtime(timers)
-        summary.update(stats, frames_per_s=fps,
+        summary.update(stats, frames_per_s=fps, frames_per_s_after_first_batch=fps_after,
                        stage_ms={k: t.average for k, t in timers.items()})
     else:
         print(f"phase A skipped: {results_path} exists")

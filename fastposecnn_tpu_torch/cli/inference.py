@@ -9,9 +9,9 @@ JAX package's `cli/inference.py`), on CUDA unless `--device cpu` is given.
 (the INFERENCE preset's single 4096-hypothesis vote); `--stage_timing` runs
 the frame a second time stage by stage, each stage fed the previous one's
 output, and times `model`, `class_compress`, `aggregation`,
-`hough_voting` and `rt_calculation` alone. On CUDA the timers are CUDA
-events. The figures of the JAX CLI (`--output`, `--draw`) and its profiler
-trace are not ported.
+`hough_voting` and `rt_calculation` alone, all in full float32 (TF32
+off). On CUDA the timers are CUDA events. The figures of the JAX CLI
+(`--output`, `--draw`) and its profiler trace are not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 from fastposecnn_tpu_torch import config as C
 from fastposecnn_tpu_torch import pipeline as P
 from fastposecnn_tpu_torch.cli.evaluate import build_network, inverse_intrinsics, scene_source
-from fastposecnn_tpu_torch.device import resolve_device
+from fastposecnn_tpu_torch.device import full_float32, resolve_device
 from fastposecnn_tpu_torch.utils.timer import StageTimer, report_runtime
 
 TIMERS = {
@@ -69,7 +69,7 @@ def main(argv=None) -> dict:
     timers = {k: StageTimer(name, device) for k, name in TIMERS.items()}
 
     frames = 0
-    with torch.inference_mode():
+    with torch.inference_mode(), full_float32():
         for batch in iterate_batches(source, 1):
             if batch is None:
                 continue

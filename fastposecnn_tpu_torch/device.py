@@ -3,11 +3,17 @@
 An entry point called without a device runs on CUDA; if CUDA is absent it
 raises instead of quietly running on the CPU. The CPU is used only when the
 caller asks for it (`device="cpu"`), as the CPU tests do.
+
+`full_float32()` is the precision the entry points compute in: float32
+throughout, as the JAX package does, with TF32 off for cuDNN convolutions
+(which PyTorch runs in TF32 by default) and for CUDA matrix products, and
+cuDNN's algorithms chosen by timing among its deterministic ones.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -24,3 +30,33 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def full_float32() -> Iterator[None]:
+    """Run the body in full float32: TF32 off for cuDNN convolutions and for
+    CUDA matrix products.
+
+    With TF32 off, cuDNN's heuristics pick an FFT algorithm for the FPN
+    decoders' 3x3 convolutions (256 to 128 channels at 120x160) at batch 2
+    to 8 that runs about 100 times slower than the one its own timing finds,
+    so the body has cuDNN time its algorithms for each new shape
+    (`cudnn.benchmark`). PyTorch caches the algorithm of a convolution under
+    its parameters and flags, but not under `cudnn.benchmark`: an algorithm
+    the heuristics gave to a float32 call outside this context would be
+    reused here untimed. So the body also asks for deterministic algorithms
+    (`cudnn.deterministic`), a flag the cache does key: calls made with
+    torch's defaults share no entry with the body's, whichever ran first.
+    The caller's four flags are restored on exit, also on an exception."""
+    backends = torch.backends
+    saved = (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+             backends.cudnn.benchmark, backends.cudnn.deterministic)
+    backends.cudnn.allow_tf32 = False
+    backends.cuda.matmul.allow_tf32 = False
+    backends.cudnn.benchmark = True
+    backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+         backends.cudnn.benchmark, backends.cudnn.deterministic) = saved

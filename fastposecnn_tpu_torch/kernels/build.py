@@ -27,7 +27,8 @@ from typing import Dict, Optional
 
 KERNEL_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parent / "_build"
-SOURCES = ("cc_label.cu", "vote_count.cu")
+SOURCES = ("cc_label.cu", "vote_count.cu", "vote_expanded_mma.cu",
+           "vote_expanded_bcast.cu")
 NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-fmad=false", "-Xcompiler", "-fPIC",
               "-shared")
 BUILD_TIMEOUT_S = 300
@@ -103,6 +104,9 @@ def load_library() -> ctypes.CDLL:
     lib.fpcnn_cc_label.restype = i
     lib.fpcnn_vote_count.argtypes = [p, p, p, p, p, p, i, i, i, ctypes.c_float, p]
     lib.fpcnn_vote_count.restype = i
+    for fn in (lib.fpcnn_vote_expanded_mma, lib.fpcnn_vote_expanded_bcast):
+        fn.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, p]
+        fn.restype = i
     lib.fpcnn_error_string.argtypes = [i]
     lib.fpcnn_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -206,10 +206,14 @@ def generate_hypotheses_rolled(pts: torch.Tensor, dirs: torch.Tensor,
 # Inlier counting: kernel K2 and its plain version
 
 
+def thresh_sq(inlier_thresh: float) -> float:
+    """t^2 in Python double, rounded once to float32 (as the JAX code's
+    weakly-typed `thresh_sq` constant)."""
+    return float(np.float32(float(inlier_thresh) ** 2))
+
+
 def _thresh_sq(inlier_thresh: float, device) -> torch.Tensor:
-    # float(t)**2 in Python double, rounded once to f32 (as the JAX code's
-    # weakly-typed `thresh_sq` constant).
-    return torch.tensor(np.float32(float(inlier_thresh) ** 2), device=device)
+    return torch.tensor(thresh_sq(inlier_thresh), device=device)
 
 
 def vote_counts_reference(hyps, pts, dirs, pvalid, inlier_thresh: float,
@@ -256,7 +260,7 @@ def vote_counts_cuda(hyps, pts, dirs, pvalid, inlier_thresh: float,
         act = active.to(torch.int32).contiguous()
     lib = load_library()
     out = torch.empty((m, h), dtype=torch.float32, device=hyps.device)
-    t2 = float(np.float32(float(inlier_thresh) ** 2))
+    t2 = thresh_sq(inlier_thresh)
     with torch.cuda.device(hyps.device):
         stream = torch.cuda.current_stream().cuda_stream
         check(lib.fpcnn_vote_count(

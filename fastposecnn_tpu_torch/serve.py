@@ -18,7 +18,7 @@ import torch
 
 from fastposecnn_tpu_torch import config as C
 from fastposecnn_tpu_torch import constants
-from fastposecnn_tpu_torch.device import DeviceLike, resolve_device
+from fastposecnn_tpu_torch.device import DeviceLike, full_float32, resolve_device
 from fastposecnn_tpu_torch.models import PoseRegressorNet
 from fastposecnn_tpu_torch.models.weights import (
     from_jax_params,
@@ -60,12 +60,14 @@ class InferenceServer:
     @torch.inference_mode()
     def __call__(self, image: torch.Tensor):
         """image [B, 3, H, W] float32 -> (mask [B, H, W] int32,
-        class_ids [B, K] int32, xy [B, K, 2], z [B, K], RT [B, K, 4, 4])."""
+        class_ids [B, K] int32, xy [B, K, 2], z [B, K], RT [B, K, 4, 4]),
+        computed in full float32."""
         image = image.to(self.device, torch.float32)
-        logits = self.net(image)
-        out = run_pipeline(logits, self.config, self.inv_K,
-                           generator=self.generator,
-                           cpu_generator=self.cpu_generator)
+        with full_float32():
+            logits = self.net(image)
+            out = run_pipeline(logits, self.config, self.inv_K,
+                               generator=self.generator,
+                               cpu_generator=self.cpu_generator)
         agg = out["aggregated"]
         return (out["categorical"]["mask"], agg["class_ids"], agg["xy"],
                 agg["z"], agg["RT"])

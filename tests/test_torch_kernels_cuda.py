@@ -15,8 +15,10 @@ from fastposecnn_tpu_torch import kernels
 from fastposecnn_tpu_torch.ops.connected_components import label_components
 from fastposecnn_tpu_torch.ops.voting import vote_counts
 from fastposecnn_tpu_torch.pipeline import PipelineConfig, run_pipeline
+from fastposecnn_tpu_torch.probes import vote_variants as V
 
 pytestmark = pytest.mark.cuda
+_NO_LAUNCHES = {k: 0 for k in kernels.KERNELS}
 
 
 @pytest.fixture
@@ -110,6 +112,40 @@ def test_wrappers_reject_bad_tensors(cuda_device):
         vote_counts_cuda(hyps, pts[:, :3], pts, torch.zeros(2, 4, device=cuda_device), 0.999)
 
 
+@pytest.mark.parametrize("m,h,p", [
+    (16, 4096, 1024), (64, 1000, 1024),
+    # the edges of the probe kernels' tiles: one hypothesis and one point,
+    # ragged under one tile, and past a tile in both dimensions
+    (3, 1, 1), (2, 33, 31), (9, 1921, 2100)])
+def test_probe_kernels_match_reference(cuda_device, m, h, p):
+    """P2 (broadcasts, CUDA cores) exactly equal to its plain version; P1
+    (3xTF32 on the tensor cores) inside the rounding band derived for it."""
+    args = [torch.from_numpy(a).to(cuda_device) for a in V.make_inputs(m, h, p, seed=m)]
+    kernels.reset_launch_counts()
+    p1 = V.vote_counts_expanded_mm(*args)
+    p2 = V.vote_counts_expanded_bcast(*args)
+    assert kernels.launch_counts() == {**_NO_LAUNCHES, "vote_expanded_mm": 1,
+                                       "vote_expanded_bcast": 1}
+    assert torch.equal(p2, V.vote_counts_expanded_bcast_reference(*args))
+    lo, hi = V.expanded_vote_band(*args, c=V.BAND_C_3XTF32)
+    assert bool(((lo <= p1) & (p1 <= hi)).all())
+
+
+@pytest.mark.parametrize("name", ["mm", "bcast"])
+def test_probe_wrappers_reject_bad_tensors(cuda_device, name):
+    cuda = getattr(V, f"vote_counts_expanded_{name}_cuda")
+    hyps, pts, dirs, pv = [torch.from_numpy(a).to(cuda_device)
+                           for a in V.make_inputs(2, 8, 4, seed=0)]
+    with pytest.raises(ValueError):
+        cuda(hyps, pts.cpu(), dirs, pv)
+    with pytest.raises(ValueError):
+        cuda(hyps.double(), pts, dirs, pv)
+    with pytest.raises(ValueError):
+        cuda(hyps, pts[:, :3].contiguous(), dirs, pv)
+    with pytest.raises(ValueError):
+        cuda(hyps, pts, dirs, pv[:, :3].contiguous())
+
+
 def _disc_logits(dev, h=96, w=128, num_classes=3, noise=0.0):
     """NCHW logits with two discs of classes 1 and 2 whose xy fields point
     at their centres (plus Gaussian `noise` on the field)."""
@@ -153,7 +189,7 @@ def test_pipeline_kernels_match_reference(cuda_device, num_hyp, max_points):
 
     kernels.reset_launch_counts()
     got = run(None)
-    assert kernels.launch_counts() == {"cc_label": 1, "vote_count": 1}
+    assert kernels.launch_counts() == {**_NO_LAUNCHES, "cc_label": 1, "vote_count": 1}
     want = run("reference")
     for key in ("cc_labels", "class_ids", "hypothesis", "win_ratio"):
         assert torch.equal(got[key], want[key]), key
@@ -181,7 +217,7 @@ def test_adaptive_pipeline_kernels_match_reference(cuda_device, sampler, refine)
     kernels.reset_launch_counts()
     got = run(None)
     rounds = got["vote_rounds"]
-    assert kernels.launch_counts() == {"cc_label": 1, "vote_count": rounds}
+    assert kernels.launch_counts() == {**_NO_LAUNCHES, "cc_label": 1, "vote_count": rounds}
     want = run("reference")
     assert 1 < rounds == want["vote_rounds"]
     for key in ("cc_labels", "class_ids", "hypothesis", "win_ratio"):

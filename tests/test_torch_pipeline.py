@@ -25,7 +25,7 @@ from fastposecnn_tpu_torch.serve import InferenceServer
 
 ATOL, RTOL = 2e-4, 1e-4
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "fastposecnn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "fastposecnn_tpu", "scripts")
 
 
 def jax_draws(key, b, n, max_points, num_hyp):
@@ -102,10 +102,11 @@ def _port_sources():
 
 
 def test_port_sources_import_no_jax():
-    """AST scan: no file of the port, nor chip_smoke.py, imports jax, flax or
-    the JAX package."""
+    """AST scan: no file of the port, nor chip_smoke.py, imports jax, flax,
+    the JAX package or its scripts (the probes included)."""
     files = _port_sources()
     assert len(files) > 15
+    assert REPO / "fastposecnn_tpu_torch" / "probes" / "vote_variants.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -133,6 +134,7 @@ for info in pkgutil.walk_packages(fastposecnn_tpu_torch.__path__, 'fastposecnn_t
     importlib.import_module(info.name)
 bad = [m for m in sys.modules if m.split('.')[0] in FORBIDDEN]
 assert not bad, bad
+assert 'fastposecnn_tpu_torch.probes.vote_variants' in sys.modules
 print('ok')
 """
 
