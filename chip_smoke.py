@@ -16,9 +16,12 @@ of BASELINE.md with the trained FULL_c5 checkpoint (the paths: the
 kernels' launch counters are reset just before each and read just after),
 measures what TF32 would change in the network (and checks that the entry
 points' float32 does not reuse a convolution algorithm that cuDNN's
-heuristics chose outside them), and times the kernels at
-the served and the evaluated shapes, their plain versions, the adaptive
-loop's host syncs and one served frame with CUDA events. Everything runs
+heuristics chose outside them), checks that a served frame enqueues with
+no host sync until it reads the CC kernel's error flag at its end, and
+times the kernels at the served and the evaluated shapes (K1 beside its
+floor: its launches with empty kernels), their plain versions, the
+adaptive loop's host syncs, 30 served frames, and what a host sync right
+after K1 cost the frame, with CUDA events. Everything runs
 in full float32 (TF32 off), as the port's entry points compute, but for
 the network's TF32 timing, which sets the flags around a direct call.
 
@@ -41,6 +44,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -49,6 +54,8 @@ from fastposecnn_tpu_torch.utils.timer import (
     FP32_UNFUSED_OPS_PER_S,
     HBM_BYTES_PER_S,
     device_us_by_kernel,
+    event_ms,
+    kernel_trace,
     loop_ms,
     median_ms,
 )
@@ -112,9 +119,18 @@ def paired_ms(fn_a, fn_b, pairs=10):
 
 
 def cc_masks(dev):
-    """480x640 masks for the CC kernel: filled ellipses, a thick and a thin
-    serpentine with many U-turns, >1000 small components, random noise, a
-    comb of one-pixel teeth, empty and all-foreground."""
+    """Masks for the CC kernel. At 480x640: filled ellipses, a thick and a
+    thin serpentine with many U-turns, >1000 small components, random noise,
+    a comb of one-pixel teeth, empty and all-foreground, and the masks that
+    cross the kernel's 32x32 tile edges (`tests/cc_masks.py`, which the CPU
+    tests hold against JAX: a one-pixel spiral, squares touching diagonally
+    at tile corners, a lattice on the tile edges, lines in the first and
+    last column, one pixel a tile); two batches of 2, the evaluated shape
+    (3x480x640) and the held-out shape (8x224x320, the tile-edge masks,
+    noise, full and empty)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    from cc_masks import tile_edge_masks
+
     ys, xs = np.mgrid[0:H, 0:W]
     ellipses = np.zeros((H, W), bool)
     for cx, cy, ax, ay in [(120, 100, 90, 50), (400, 120, 60, 80),
@@ -147,10 +163,17 @@ def cc_masks(dev):
         "comb": comb,
         "empty": np.zeros((H, W), bool),
         "full": np.ones((H, W), bool),
+        **tile_edge_masks(H, W),
     }
     batches = {f"{k}_b1": v[None] for k, v in masks.items()}
     batches["ellipses+serpentine_b2"] = np.stack([ellipses, serpentine(1)])
     batches["dots+full_b2"] = np.stack([dots, np.ones((H, W), bool)])
+    batches["spiral+lattice+noise_b3"] = np.stack(
+        [masks["spiral"], masks["edge_lattice"], noise])
+    h, w = 224, 320
+    batches["held_out_shape_b8"] = np.stack(
+        [*tile_edge_masks(h, w).values(), np.random.default_rng(1).random((h, w)) > 0.55,
+         np.ones((h, w), bool), np.zeros((h, w), bool)])
     return {k: torch.from_numpy(v).to(dev) for k, v in batches.items()}
 
 
@@ -255,8 +278,9 @@ def phase_cc_kernel(dev):
             bad = int((got != want).sum())
             raise AssertionError(f"cc_label differs from its plain version on "
                                  f"'{name}' at {bad} pixels")
+        hw = want.shape[1] * want.shape[2]
         n_comp = int((want.reshape(want.shape[0], -1)
-                      == torch.arange(H * W, device=dev)).sum())
+                      == torch.arange(hw, device=dev)).sum())
         results[name] = n_comp
     if results["small_components_b1"] <= 1000:
         raise AssertionError("the small-components mask has too few components")
@@ -471,6 +495,38 @@ def phase_serve(dev, requests=5):
                          cudnn_deterministic=True))
     return server, images[0], launches
 
+
+def phase_sync_check(server, image):
+    """The served frame enqueues without a host sync until its final flag
+    read: `InferenceServer.enqueue` (every stage of `__call__` but that
+    read) on a device-resident image under
+    `torch.cuda.set_sync_debug_mode("error")`. If anything syncs, the same
+    call in "warn" mode names every place that did, and the phase fails."""
+    from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
+
+    torch.cuda.synchronize()
+    failure = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, cc_error = server.enqueue(image)
+    except RuntimeError as e:
+        failure = f"{e} at {traceback.extract_tb(e.__traceback__)[-1]}"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if failure is not None:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                server.enqueue(image)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sites = sorted({f"{w.filename}:{w.lineno}" for w in caught})
+        raise AssertionError(f"the served frame syncs before its flag read: {failure}; "
+                             f"every sync: {sites}")
+    raise_on_error_flag(cc_error)
+    emit("sync_check", mode="error", synced=False, stages="InferenceServer.enqueue",
+         image_on=str(image.device))
 
 
 def oracle_batch(dev, scenes=4):
@@ -697,17 +753,59 @@ def time_vote(dev, lib, smi, name, hyps, pts, dirs, pv, act32):
     return line
 
 
+def time_cc(lib, smi, fg, **what):
+    """K1 through its C entry point on the bool mask `fg` [B, H, W]: ms per
+    call (CUDA events around 50 back-to-back calls), the plain version's
+    ms, the byte bound (read the mask once, write the labels once), the
+    device time per CUDA kernel, the launches a call makes (counted in the
+    same profiler trace), and the floor: the bound plus the same launches
+    of an empty kernel, timed alike. Emits
+    one `timing` line and returns its fields."""
+    from fastposecnn_tpu_torch.kernels.build import check
+    from fastposecnn_tpu_torch.ops.connected_components import label_components_reference
+
+    b, h, w = fg.shape
+    fg8 = fg.contiguous().view(torch.uint8)
+    labels = torch.empty(fg.shape, dtype=torch.int32, device=fg.device)
+    err = torch.zeros(1, dtype=torch.int32, device=fg.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        check(lib.fpcnn_cc_label(fg8.data_ptr(), labels.data_ptr(), err.data_ptr(),
+                                 b, h, w, stream), "cc_label")
+
+    def empty():
+        check(lib.fpcnn_cc_label_empty(b, h, w, stream), "cc_label_empty")
+
+    ms = loop_ms(call)
+    if int(err.item()) != 0:
+        raise AssertionError(f"cc_label passed its step bound on {what}")
+    bound = fg.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3
+    empty_ms = loop_ms(empty)
+    us_by_kernel, launches = kernel_trace(call)
+    empty_us_by_kernel, empty_launches = kernel_trace(empty)
+    if launches != empty_launches or launches != int(launches) or launches < 1:
+        raise AssertionError(f"cc_label launches {launches} kernels a call, its empty "
+                             f"version {empty_launches}, on {what}")
+    line = dict(kernel="cc_label", shape=list(fg.shape), foreground=int(fg.sum()), ms=ms,
+                plain_ms=median_ms(lambda: label_components_reference(fg), iters=5),
+                bound_ms=bound, bound_by="bytes", launches_per_call=int(launches),
+                empty_launches_ms=empty_ms, floor_ms=bound + empty_ms,
+                device_us_by_kernel=us_by_kernel,
+                empty_launches_device_us=sum(empty_us_by_kernel.values()))
+    emit("timing", **what, card=smi, **line)
+    return line
+
+
 def phase_eval_timing(dev, oracle, smi):
     """K2 at the evaluation shapes (the oracle batch's first round, 64 x 1000
     x 1024, and the held-out recipe's 64 x 128 x 1024), K1 at B=4 on the
     oracle batch, and the adaptive loop's host syncs: 20 rounds with the
     per-round flag read against the same rounds without it."""
-    from fastposecnn_tpu_torch.kernels.build import check, load_library
+    from fastposecnn_tpu_torch.kernels.build import load_library
     from fastposecnn_tpu_torch.ops import voting as V
-    from fastposecnn_tpu_torch.ops.connected_components import label_components_reference
 
     lib = load_library()
-    stream = torch.cuda.current_stream().cuda_stream
     agg, draws = oracle["out"]["aggregated"], oracle["draws"]
     b, n = agg["valid"].shape
     m = b * n
@@ -727,25 +825,8 @@ def phase_eval_timing(dev, oracle, smi):
             ("vote_count_held_out_shape", vote_inputs(dev, 64, 128, 1024, 16, seed=9))):
         out[name] = time_vote(dev, lib, smi, name, *args[:4], args[4].to(torch.int32))
 
-    fg = oracle["out"]["categorical"]["mask"] != 0
-    fg8 = fg.contiguous().view(torch.uint8)
-    labels = torch.empty(fg.shape, dtype=torch.int32, device=dev)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
-
-    def cc_call():
-        check(lib.fpcnn_cc_label(fg8.data_ptr(), labels.data_ptr(), err.data_ptr(),
-                                 fg.shape[0], H, W, stream), "cc_label")
-
-    cc_ms = loop_ms(cc_call)
-    if int(err.item()) != 0:
-        raise AssertionError("cc_label passed its step bound on the oracle batch")
-    out["cc_label_eval_oracle_b4"] = dict(
-        kernel="cc_label", shape=list(fg.shape), foreground=int(fg.sum()), ms=cc_ms,
-        plain_ms=median_ms(lambda: label_components_reference(fg), iters=5),
-        bound_ms=fg.numel() * (1 + 4) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        device_us_by_kernel=device_us_by_kernel(cc_call))
-    emit("timing", what="cc_label_eval_oracle_b4", card=smi,
-         **out["cc_label_eval_oracle_b4"])
+    out["cc_label_eval_oracle_b4"] = time_cc(
+        lib, smi, oracle["out"]["categorical"]["mask"] != 0, what="cc_label_eval_oracle_b4")
 
     # The adaptive loop: 20 rounds (confidence 1.0 is never reached) with
     # the flag read before each round, against the same rounds, exit test
@@ -787,11 +868,11 @@ def phase_eval_timing(dev, oracle, smi):
 def phase_timing(dev, server, image, launches, errs, smi):
     from fastposecnn_tpu_torch import pipeline as P
     from fastposecnn_tpu_torch.device import full_float32
-    from fastposecnn_tpu_torch.kernels.build import check, load_library
-    from fastposecnn_tpu_torch.ops.connected_components import label_components_reference
+    from fastposecnn_tpu_torch.kernels.build import load_library
+    from fastposecnn_tpu_torch.ops import aggregation
+    from fastposecnn_tpu_torch.ops.connected_components import label_components
 
     lib = load_library()
-    stream = torch.cuda.current_stream().cuda_stream
     card = dict(card=smi)
 
     # K1, B=1, 480x640, on the served frame's own foreground (the main
@@ -805,36 +886,46 @@ def phase_timing(dev, server, image, launches, errs, smi):
         "served_frame": served_fg,
         "all_foreground": torch.ones((1, H, W), dtype=torch.bool, device=dev),
     }
-    labels = torch.empty((1, H, W), dtype=torch.int32, device=dev)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
-    # Read the bool mask once (1 byte a pixel), write the labels once (4).
-    cc_bound = H * W * (1 + 4) / HBM_BYTES_PER_S * 1e3
-    cc_times = {}
-    for name, fg in cc_masks_timed.items():
-        fg8 = fg.contiguous().view(torch.uint8)
-        ms = loop_ms(lambda: check(lib.fpcnn_cc_label(
-            fg8.data_ptr(), labels.data_ptr(), err.data_ptr(), 1, H, W, stream),
-            "cc_label"))
-        plain = median_ms(lambda: label_components_reference(fg), iters=5)
-        if int(err.item()) != 0:
-            raise AssertionError(f"cc_label passed its step bound on '{name}'")
-        cc_times[name] = (ms, plain)
-        by_kernel = device_us_by_kernel(lambda: check(lib.fpcnn_cc_label(
-            fg8.data_ptr(), labels.data_ptr(), err.data_ptr(), 1, H, W, stream),
-            "cc_label"))
-        emit("timing", kernel="cc_label", mask=name, shape=[1, H, W],
-             foreground=int(fg.sum()), ms=ms, plain_ms=plain, bound_ms=cc_bound,
-             bound_by="bytes", device_us_by_kernel=by_kernel, **card)
-    cc_ms, cc_plain = cc_times["served_frame"]
+    cc_times = {name: time_cc(lib, smi, fg, mask=name) for name, fg in cc_masks_timed.items()}
+    cc = cc_times["served_frame"]
 
     # K2 at the main-path shape with every slot active (its best case).
     hyps, pts, dirs, pv, act = vote_inputs(dev, 16, 4096, 1024, 16, seed=3)
     vote = time_vote(dev, lib, smi, "vote_count_served_shape", hyps, pts, dirs, pv,
                      act.to(torch.int32))
 
-    frame_ms = median_ms(lambda: server(image), iters=10)
-    emit("timing", what="served_frame", shape=[1, 3, H, W], ms=frame_ms,
-         fps=1e3 / frame_ms, **card)
+    # The served frame: CUDA events around 30 frames; then the card's busy
+    # time a frame (the summed device time of every kernel, copy and set of
+    # 10 frames in a profiler trace, one stream) against that median.
+    frames = event_ms(lambda: server(image), iters=30)
+    frame_ms = statistics.median(frames)
+    busy_us, device_ops = kernel_trace(lambda: server(image), calls=10)
+    busy_ms = sum(busy_us.values()) / 1e3
+    emit("timing", what="served_frame", shape=[1, 3, H, W], frames=len(frames),
+         ms=frame_ms, quartiles_ms=[float(q) for q in np.percentile(frames, [25, 75])],
+         fps=1e3 / frame_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / frame_ms,
+         device_ops_per_frame=device_ops, **card)
+
+    # What K1's flag read cost the frame before the entry points deferred
+    # it: the served frame as it runs against the same stages with K1's
+    # wrapper reading its flag at once (a host sync right after K1, as the
+    # parent of this change did), in 20 interleaved pairs.
+    def k1_reads_at_once(fg, impl=None, err=None):
+        return label_components(fg, impl=impl)
+
+    def frame_with_k1_sync():
+        aggregation.label_components = k1_reads_at_once
+        try:
+            server(image)
+        finally:
+            aggregation.label_components = label_components
+
+    t_deferred, t_sync = paired_ms(lambda: server(image), frame_with_k1_sync, pairs=20)
+    diff = np.subtract(t_sync, t_deferred)
+    emit("timing", what="served_frame_k1_sync", pairs=len(diff),
+         ms_deferred=statistics.median(t_deferred), ms_k1_sync=statistics.median(t_sync),
+         sync_cost_ms_per_frame=float(np.median(diff)),
+         sync_cost_quartiles=[float(q) for q in np.percentile(diff, [25, 75])], **card)
 
     # The served frame by stage, each timed alone on the previous stage's
     # output, in full float32 as the server runs them; and the post-network
@@ -863,9 +954,10 @@ def phase_timing(dev, server, image, launches, errs, smi):
         dict(name="cc_label", route="cuda",
              source="fastposecnn_tpu_torch/kernels/cc_label.cu",
              replaces="fastposecnn_tpu/ops/connected_components.py:85",
-             launches=launches["cc_label"], max_abs_err=errs["cc_label"], ms=cc_ms,
-             plain_ms=cc_plain, bound_ms=cc_bound, bound_by="bytes",
-             library_ms=None),
+             launches=launches["cc_label"], max_abs_err=errs["cc_label"], ms=cc["ms"],
+             plain_ms=cc["plain_ms"], bound_ms=cc["bound_ms"], bound_by="bytes",
+             library_ms=None, launches_per_call=cc["launches_per_call"],
+             floor_ms=cc["floor_ms"]),
         dict(name="vote_count", route="cuda",
              source="fastposecnn_tpu_torch/kernels/vote_count.cu",
              replaces="fastposecnn_tpu/ops/voting.py:282",
@@ -1122,6 +1214,7 @@ def main():
     phase_known_scene(dev)
     oracle = phase_eval_oracle(dev)
     server, image, launches = phase_serve(dev)
+    phase_sync_check(server, image)
     _, eval_launches = phase_evaluate(dev)
     eval_times = phase_eval_timing(dev, oracle, smi)
     kernels = phase_timing(dev, server, image, launches, errs, smi)

@@ -35,6 +35,7 @@ from fastposecnn_tpu_torch import config as C
 from fastposecnn_tpu_torch import constants, eval_host
 from fastposecnn_tpu_torch import pipeline as P
 from fastposecnn_tpu_torch.device import full_float32, resolve_device
+from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
 from fastposecnn_tpu_torch.utils.timer import StageTimer, report_runtime
 
 APS_NUM_OF_POINTS = 50
@@ -69,7 +70,9 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
 
     The network and the stages after it run in full float32 (TF32 off).
     Batch `bi` votes with `draws_for(bi)` when given, else with fresh draws
-    from `generator` and `cpu_generator`. Returns (raw errors
+    from `generator` and `cpu_generator`. The CC kernel's error flag is
+    read once a batch, after the matched values are read back, and raises
+    if set. Returns (raw errors
     {metric: {class: float64 array}}, stats {frames, batches, vote_rounds
     per batch, seconds, and the first batch's frames and seconds, which
     include cuDNN timing its algorithms for the batch's shape})."""
@@ -107,6 +110,8 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
                     keys=("quaternion", "scales", "z", "xy", "T", "R", "RT"))
         with timers["errors"].measure():
             m = {k: v[:n_real].cpu().numpy() for k, v in matched.items()}
+            # After the readback above, which waited for the batch.
+            raise_on_error_flag(agg["cc_error"])
             errors = instance_errors(m, fpc_compat_iou)
             for c in range(1, num_classes):
                 sel = m["valid"] & (m["class_ids"] == c)

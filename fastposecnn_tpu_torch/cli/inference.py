@@ -10,7 +10,8 @@ JAX package's `cli/inference.py`), on CUDA unless `--device cpu` is given.
 the frame a second time stage by stage, each stage fed the previous one's
 output, and times `model`, `class_compress`, `aggregation`,
 `hough_voting` and `rt_calculation` alone, all in full float32 (TF32
-off). On CUDA the timers are CUDA events. The figures of the JAX CLI
+off). On CUDA the timers are CUDA events, read after each frame, and
+the CC kernel's error flags are read after them. The figures of the JAX CLI
 (`--output`, `--draw`) and its profiler trace are not ported.
 """
 
@@ -24,6 +25,7 @@ from fastposecnn_tpu_torch import config as C
 from fastposecnn_tpu_torch import pipeline as P
 from fastposecnn_tpu_torch.cli.evaluate import build_network, inverse_intrinsics, scene_source
 from fastposecnn_tpu_torch.device import full_float32, resolve_device
+from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
 from fastposecnn_tpu_torch.utils.timer import StageTimer, report_runtime
 
 TIMERS = {
@@ -75,7 +77,8 @@ def main(argv=None) -> dict:
                 continue
             image = upcast_batch(pad_batch(batch, 1)[0], device)["image"]
             with timers["forward"].measure():
-                P.run_pipeline(net(image), pcfg, inv_K, **gens)
+                out = P.run_pipeline(net(image), pcfg, inv_K, **gens)
+            flags = [out["aggregated"]["cc_error"]]
             if args.stage_timing:
                 with timers["model"].measure():
                     logits = net(image)
@@ -83,6 +86,7 @@ def main(argv=None) -> dict:
                     cat = P.stage_class_compress(logits)
                 with timers["aggregation"].measure():
                     agg = P.stage_aggregate(cat, pcfg)
+                flags.append(agg["cc_error"])
                 with timers["hough_voting"].measure():
                     agg = P.stage_hough_voting(agg, pcfg, **gens)
                 with timers["rt_calculation"].measure():
@@ -90,6 +94,9 @@ def main(argv=None) -> dict:
             frames += 1
             for t in timers.values():
                 t.flush()
+            # The CC kernel's error flags, read after the frame's timers.
+            for err in flags:
+                raise_on_error_flag(err)
     report_runtime(timers)
     return {"frames": frames, "device": str(device),
             "stage_ms": {k: t.average for k, t in timers.items() if t.times_ms}}

@@ -210,7 +210,9 @@ def assemble_RT(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """RT = [[R, -R @ T], [0, 0, 0, 1]] (the closed-form inverse of the
     reference's [[R^-1, T], [0, 0, 0, 1]])."""
     top = torch.cat([R, -(R @ T[..., None])], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    # [0, 0, 0, 1], made on the device: a host-to-device copy would wait
+    # for the stream.
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3]
     bottom = bottom.expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 

@@ -102,6 +102,8 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fpcnn_cc_label.argtypes = [p, p, p, i, i, i, p]
     lib.fpcnn_cc_label.restype = i
+    lib.fpcnn_cc_label_empty.argtypes = [i, i, i, p]
+    lib.fpcnn_cc_label_empty.restype = i
     lib.fpcnn_vote_count.argtypes = [p, p, p, p, p, p, i, i, i, ctypes.c_float, p]
     lib.fpcnn_vote_count.restype = i
     for fn in (lib.fpcnn_vote_expanded_mma, lib.fpcnn_vote_expanded_bcast):

@@ -16,6 +16,7 @@ from fastposecnn_tpu_torch.geometry import safe_normalize
 from fastposecnn_tpu_torch.ops.connected_components import (
     extract_instances,
     label_components,
+    new_error_flag,
 )
 
 _INT32_MAX = 2**31 - 1
@@ -26,11 +27,15 @@ def aggregate_instances(cat_data: Dict[str, torch.Tensor], max_instances: int,
     """Categorical data (from `class_compress`) -> padded instance data:
     instance_masks [B, K, H, W], valid [B, K], class_ids [B, K] int32,
     quaternion [B, K, 4], scales [B, K, 3], z [B, K], plus `xy_dense`,
-    `cat_mask`, `cc_labels` and `cc_roots` passed through for voting."""
+    `cat_mask`, `cc_labels` and `cc_roots` passed through for voting, and
+    `cc_error`: the CC kernel's error flag on a CUDA device, unread (the
+    entry point reads it once, with `raise_on_error_flag`), None on the
+    CPU."""
     cat_mask = cat_data["mask"]
     b, h, w = cat_mask.shape
     hw = h * w
-    labels = label_components(cat_mask != 0, impl=impl)
+    cc_error = new_error_flag(cat_mask)
+    labels = label_components(cat_mask != 0, impl=impl, err=cc_error)
     masks, valid, roots = extract_instances(labels, max_instances)
     flat_masks = masks.reshape(b, max_instances, hw)
     safe_area = flat_masks.sum(-1).clamp_min(1.0)
@@ -61,4 +66,5 @@ def aggregate_instances(cat_data: Dict[str, torch.Tensor], max_instances: int,
         "cat_mask": cat_mask,
         "cc_labels": labels,
         "cc_roots": roots,
+        "cc_error": cc_error,
     }

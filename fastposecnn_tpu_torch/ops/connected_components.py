@@ -6,6 +6,11 @@ of its component; background is -1. `label_components` sends a CUDA tensor
 to the hand-written kernel `kernels/cc_label.cu` and a CPU tensor to the
 plain version `label_components_reference`; `impl="reference"` forces the
 plain version on either device.
+
+The kernel sets an error flag on the device when a loop passes its step
+bound. Reading it waits for the device, so a caller that enqueues more work
+passes its own flag (`new_error_flag`) and reads it once at its end with
+`raise_on_error_flag`; without one, the wrapper reads it at once.
 """
 
 from __future__ import annotations
@@ -51,38 +56,66 @@ def label_components_reference(fg: torch.Tensor) -> torch.Tensor:
     return torch.where(fgb, lbl, -1).to(torch.int32)
 
 
-def label_components_cuda(fg: torch.Tensor) -> torch.Tensor:
-    """Kernel K1 (`kernels/cc_label.cu`) on a CUDA tensor."""
+def new_error_flag(like: torch.Tensor) -> Optional[torch.Tensor]:
+    """A cleared error flag (int32 [1]) on `like`'s device when that is a
+    CUDA device, else None (the plain version sets no flag)."""
+    if not like.is_cuda:
+        return None
+    return torch.zeros(1, dtype=torch.int32, device=like.device)
+
+
+def raise_on_error_flag(err: Optional[torch.Tensor]) -> None:
+    """Read the kernel's error flag (waits for the device) and raise if it
+    is set; None, from the CPU, passes."""
+    if err is not None and int(err.item()) != 0:
+        raise RuntimeError("cc_label: a device loop passed its step bound")
+
+
+def label_components_cuda(fg: torch.Tensor,
+                          err: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel K1 (`kernels/cc_label.cu`) on a CUDA tensor. Given `err` (int32
+    [1] on fg's device), the kernel sets it and the wrapper returns without
+    reading it; without, the wrapper makes one and raises at once."""
     if not fg.is_cuda or fg.dim() != 3:
         raise ValueError(f"cc_label needs a CUDA [B, H, W] tensor, got "
                          f"{tuple(fg.shape)} on {fg.device}")
     b, h, w = fg.shape
-    if h * w >= 2**31:
-        raise ValueError(f"cc_label: image of {h}x{w} pixels is too large")
+    if h * w >= 2**31 or b >= 2**16:
+        raise ValueError(f"cc_label: a batch of {b} images of {h}x{w} pixels is "
+                         f"too large")
+    deferred = err is not None
+    if deferred and (err.dtype != torch.int32 or err.shape != (1,)
+                     or err.device != fg.device):
+        raise ValueError(f"cc_label: the error flag must be int32 [1] on "
+                         f"{fg.device}, got {err.dtype} {tuple(err.shape)} on "
+                         f"{err.device}")
     lib = load_library()
     # The kernel reads one byte per pixel: a bool mask goes in as it is.
     fg8 = (fg if fg.dtype == torch.bool else fg != 0).contiguous().view(torch.uint8)
     out = torch.empty(fg.shape, dtype=torch.int32, device=fg.device)
-    err = torch.zeros(1, dtype=torch.int32, device=fg.device)
+    if not deferred:
+        err = new_error_flag(fg)
     with torch.cuda.device(fg.device):
         stream = torch.cuda.current_stream().cuda_stream
         check(lib.fpcnn_cc_label(fg8.data_ptr(), out.data_ptr(),
                                  err.data_ptr(), b, h, w, stream), "cc_label")
     count_launch("cc_label")
-    if int(err.item()) != 0:
-        raise RuntimeError("cc_label: a device loop passed its step bound")
+    if not deferred:
+        raise_on_error_flag(err)
     return out
 
 
-def label_components(fg: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
+def label_components(fg: torch.Tensor, impl: Optional[str] = None,
+                     err: Optional[torch.Tensor] = None) -> torch.Tensor:
     """fg [B, H, W] -> [B, H, W] int32 root index / -1. CUDA tensors go to
-    the kernel, CPU tensors to the plain version."""
+    the kernel (which sets `err` when given, see `label_components_cuda`),
+    CPU tensors to the plain version, which sets no flag."""
     if impl == "reference":
         return label_components_reference(fg)
     if impl is not None:
         raise ValueError(f"unknown impl {impl!r}")
     if fg.is_cuda:
-        return label_components_cuda(fg)
+        return label_components_cuda(fg, err)
     if fg.device.type == "cpu":
         return label_components_reference(fg)
     raise ValueError(f"unsupported device {fg.device}")

@@ -133,7 +133,7 @@ def sample_mask_points_bbox(
     dev = inst_masks.device
     xs = torch.arange(w, dtype=torch.float32, device=dev).repeat(h)
     ys = torch.arange(h, dtype=torch.float32, device=dev).repeat_interleave(w)
-    big = torch.tensor(1e9, dtype=torch.float32, device=dev)
+    big = torch.full((), 1e9, dtype=torch.float32, device=dev)  # no host copy: no sync
     on = flat > 0
     x0 = torch.where(on, xs, big).amin(-1)
     x1 = torch.where(on, xs, -big).amax(-1)
@@ -213,7 +213,8 @@ def thresh_sq(inlier_thresh: float) -> float:
 
 
 def _thresh_sq(inlier_thresh: float, device) -> torch.Tensor:
-    return torch.tensor(thresh_sq(inlier_thresh), device=device)
+    # Filled on the device: a host-to-device copy would wait for the stream.
+    return torch.full((), thresh_sq(inlier_thresh), dtype=torch.float32, device=device)
 
 
 def vote_counts_reference(hyps, pts, dirs, pvalid, inlier_thresh: float,

@@ -89,7 +89,8 @@ def run_pipeline(logits: Dict[str, torch.Tensor], config: PipelineConfig,
                  cpu_generator: Optional[torch.Generator] = None
                  ) -> Dict[str, Any]:
     """Compose the post-network stages. Returns {'logits', 'categorical',
-    'aggregated'}."""
+    'aggregated'}; 'aggregated' carries the CC kernel's unread error flag
+    as 'cc_error' (None on the CPU) for the caller to read once at its end."""
     config.check_ported()
     categorical = stage_class_compress(logits)
     aggregated = stage_aggregate(categorical, config)

@@ -25,6 +25,7 @@ from fastposecnn_tpu_torch.models.weights import (
     init_random_,
     load_npz_checkpoint,
 )
+from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
 from fastposecnn_tpu_torch.pipeline import run_pipeline
 
 
@@ -58,10 +59,10 @@ class InferenceServer:
         self.cpu_generator = torch.Generator().manual_seed(seed + 1)
 
     @torch.inference_mode()
-    def __call__(self, image: torch.Tensor):
-        """image [B, 3, H, W] float32 -> (mask [B, H, W] int32,
-        class_ids [B, K] int32, xy [B, K, 2], z [B, K], RT [B, K, 4, 4]),
-        computed in full float32."""
+    def enqueue(self, image: torch.Tensor):
+        """Every stage of `__call__` on one image, enqueued without reading
+        anything back: returns (answer, the CC kernel's unread error flag,
+        None on the CPU)."""
         image = image.to(self.device, torch.float32)
         with full_float32():
             logits = self.net(image)
@@ -69,5 +70,15 @@ class InferenceServer:
                                generator=self.generator,
                                cpu_generator=self.cpu_generator)
         agg = out["aggregated"]
-        return (out["categorical"]["mask"], agg["class_ids"], agg["xy"],
-                agg["z"], agg["RT"])
+        answer = (out["categorical"]["mask"], agg["class_ids"], agg["xy"],
+                  agg["z"], agg["RT"])
+        return answer, agg["cc_error"]
+
+    def __call__(self, image: torch.Tensor):
+        """image [B, 3, H, W] float32 -> (mask [B, H, W] int32,
+        class_ids [B, K] int32, xy [B, K, 2], z [B, K], RT [B, K, 4, 4]),
+        computed in full float32. The CC kernel's error flag is read once,
+        after every stage is enqueued, and raises if set."""
+        answer, cc_error = self.enqueue(image)
+        raise_on_error_flag(cc_error)
+        return answer

@@ -6,9 +6,9 @@ around each call of its stage and reads them in `flush()`, after the batch,
 so timing adds no sync inside the batch. On the CPU it reads the host
 clock.
 
-`median_ms`, `loop_ms` and `device_us_by_kernel` time work on a CUDA
-device, for `chip_smoke.py` and the probes, against the card's published
-peaks below.
+`event_ms`, `median_ms`, `loop_ms`, `kernel_trace` and `device_us_by_kernel`
+time work on a CUDA device, for `chip_smoke.py` and the probes, against the
+card's published peaks below.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from __future__ import annotations
 import contextlib
 import statistics
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -84,8 +84,8 @@ def report_runtime(timers: Dict[str, StageTimer]) -> str:
     return text
 
 
-def median_ms(fn: Callable, iters: int = 20, warmup: int = 3) -> float:
-    """Median of `iters` CUDA-event timings of fn(), after `warmup` calls."""
+def event_ms(fn: Callable, iters: int = 20, warmup: int = 3) -> List[float]:
+    """`iters` CUDA-event timings of fn() in ms, after `warmup` calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -98,7 +98,12 @@ def median_ms(fn: Callable, iters: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def median_ms(fn: Callable, iters: int = 20, warmup: int = 3) -> float:
+    """Median of `iters` CUDA-event timings of fn(), after `warmup` calls."""
+    return statistics.median(event_ms(fn, iters, warmup))
 
 
 def loop_ms(fn: Callable, launches: int = 50, repeats: int = 5) -> float:
@@ -108,10 +113,12 @@ def loop_ms(fn: Callable, launches: int = 50, repeats: int = 5) -> float:
                      iters=repeats, warmup=1) / launches
 
 
-def device_us_by_kernel(fn: Callable, calls: int = 20) -> Dict[str, float]:
-    """Device microseconds per call of each CUDA kernel that fn() launches,
-    from a torch.profiler trace of `calls` calls (an empty dict if the
-    trace holds no device time)."""
+def kernel_trace(fn: Callable, calls: int = 20) -> Tuple[Dict[str, float], float]:
+    """Device microseconds per call of each kernel, copy or set that fn()
+    runs on the card, and how many of them it runs per call, from a
+    torch.profiler trace of `calls` calls (an empty dict and 0 if the trace
+    holds no device event)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -120,5 +127,12 @@ def device_us_by_kernel(fn: Callable, calls: int = 20) -> Dict[str, float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / calls for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return ({e.key: e.self_device_time_total / calls for e in kernels},
+            sum(e.count for e in kernels) / calls)
+
+
+def device_us_by_kernel(fn: Callable, calls: int = 20) -> Dict[str, float]:
+    """Device microseconds per call of each CUDA kernel that fn() launches
+    (`kernel_trace`'s first result)."""
+    return kernel_trace(fn, calls)[0]

@@ -10,9 +10,14 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from cc_masks import tile_edge_masks
 
 from fastposecnn_tpu_torch import kernels
-from fastposecnn_tpu_torch.ops.connected_components import label_components
+from fastposecnn_tpu_torch.ops.connected_components import (
+    label_components,
+    label_components_cuda,
+    new_error_flag,
+)
 from fastposecnn_tpu_torch.ops.voting import vote_counts
 from fastposecnn_tpu_torch.pipeline import PipelineConfig, run_pipeline
 from fastposecnn_tpu_torch.probes import vote_variants as V
@@ -50,6 +55,12 @@ def _masks():
         "snake": snake,
         "empty": np.zeros((1, 8, 8), bool),
         "full": np.ones((1, 8, 8), bool),
+        # A batch of 8 at the held-out shape's height and a ragged width.
+        "random_b8": rng.random((8, 224, 330)) > np.linspace(0.2, 0.8, 8)[:, None, None],
+        # Masks that cross the kernel's 32x32 tile edges, at 64x96 and at a
+        # ragged 37x101.
+        **{f"{name}_{h}x{w}": m[None] for h, w in ((64, 96), (37, 101))
+           for name, m in tile_edge_masks(h, w).items()},
     }
 
 
@@ -62,6 +73,20 @@ def test_cc_kernel_matches_reference(cuda_device, name):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["cc_label"] == before + 1
     assert torch.equal(got, want)
+
+
+def test_cc_kernel_defers_its_flag(cuda_device):
+    """Given a flag, the wrapper leaves it unread (and clear on a good
+    mask); a flag of the wrong type or device is refused."""
+    fg = torch.from_numpy(_masks()["random"]).to(cuda_device)
+    err = new_error_flag(fg)
+    got = label_components(fg, err=err)
+    assert torch.equal(got, label_components(fg, impl="reference"))
+    assert int(err.item()) == 0
+    with pytest.raises(ValueError):
+        label_components_cuda(fg, err=torch.zeros(1, dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError):
+        label_components_cuda(fg, err=torch.zeros(1, dtype=torch.int32))
 
 
 def _vote_active(m, h, p):

@@ -2,6 +2,10 @@
 extraction and aggregation in `fastposecnn_tpu_torch` (CPU, plain versions)
 against the JAX package on the same seeded numpy inputs."""
 
+import pathlib
+import re
+
+import cc_masks
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,17 +75,23 @@ def _snake(h=16, w=16):
 
 
 def _cc_masks():
-    """The masks of the JAX package's Pallas CC tests (tests/test_ops.py)."""
+    """The masks of the JAX package's Pallas CC tests (tests/test_ops.py),
+    and those that cross the CUDA kernel's 32x32 tile edges
+    (`tests/cc_masks.py`) at 64x96 and at a ragged 37x101."""
     rng = np.random.default_rng(0)
     blob = np.zeros((1, 48, 128), bool)
     blob[0, 4:44, 8:120] = True
-    return {
+    masks = {
         "random": rng.random((2, 32, 64)) > 0.55,
         "blob": blob,
         "snake": _snake(),
         "empty": np.zeros((1, 8, 8), bool),
         "full": np.ones((1, 8, 8), bool),
     }
+    for h, w in ((64, 96), (37, 101)):
+        for name, m in cc_masks.tile_edge_masks(h, w).items():
+            masks[f"{name}_{h}x{w}"] = m[None]
+    return masks
 
 
 @pytest.mark.parametrize("name", sorted(_cc_masks()))
@@ -112,6 +122,14 @@ def test_cc_dispatch_uses_reference_on_cpu():
         label_components(fg, impl="pallas")
     with pytest.raises(ValueError):  # the kernel's wrapper never takes a CPU tensor
         label_components_cuda(fg)
+
+
+def test_cc_masks_tile_is_the_kernels():
+    """The tile-edge masks put their features on the kernel's tile edges."""
+    src = (pathlib.Path(__file__).resolve().parents[1]
+           / "fastposecnn_tpu_torch" / "kernels" / "cc_label.cu").read_text()
+    tile = re.search(r"constexpr int TILE = (\d+);", src)
+    assert tile is not None and int(tile.group(1)) == cc_masks.TILE
 
 
 def _many_components(h=128, w=128):
