@@ -9,6 +9,9 @@ into one shared library under `fastposecnn_tpu_torch/_build/`, named by a hash
 of the sources, the flags and `nvcc --version`. The library is written under a
 temporary name and moved into place with `os.replace`, so a killed build
 leaves neither a lock nor a half-written file, and a later run reuses it.
+`-Xptxas -v` makes the compiler report each kernel's registers, shared
+memory and spills; `build_info["ptxas"]` holds them by kernel, from a file
+kept beside the library, so a reused library reports them too.
 
 Building happens at first use (`load_library()`), never at import.
 """
@@ -17,8 +20,10 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -29,8 +34,8 @@ KERNEL_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parent / "_build"
 SOURCES = ("cc_label.cu", "vote_count.cu", "vote_expanded_mma.cu",
            "vote_expanded_bcast.cu")
-NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-fmad=false", "-Xcompiler", "-fPIC",
-              "-shared")
+NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false", "-Xptxas",
+              "-v", "-Xcompiler", "-fPIC", "-shared")
 BUILD_TIMEOUT_S = 300
 
 _lib: Optional[ctypes.CDLL] = None
@@ -73,6 +78,51 @@ def _library_path(nvcc: str) -> pathlib.Path:
     return BUILD_DIR / f"libfpcnn_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _kernel_name(mangled: str) -> str:
+    """`vote_count_kernel` from an Itanium mangled name such as
+    `_ZN<n>_GLOBAL__N_..._<n>vote_count_kernelEPK6float2...` (a function in
+    an anonymous namespace) or `_Z<n>name...`."""
+    names, i = [], 3 if mangled.startswith("_ZN") else 2
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    names = [n for n in names if not n.startswith("_GLOBAL__N")]
+    return names[-1] if names else mangled
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, object]]:
+    """Registers, shared memory, stack and spills of each kernel, from the
+    lines `nvcc -Xptxas -v` prints, and the compiler's warnings about a
+    kernel (such as wgmma serialised) under its "notes"."""
+    out: Dict[str, Dict[str, object]] = {}
+    name = None
+    for line in log.splitlines():
+        if "warning" in line.lower() or "Performance Loss" in line:
+            m = re.search(r"'(_Z\w+)'", line)
+            key = _kernel_name(m.group(1)) if m else "other"
+            out.setdefault(key, {}).setdefault("notes", []).append(line.strip())
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                out[name][key] = int(m.group(1))
+    return out
+
+
 def _compile(nvcc: str, target: pathlib.Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR, prefix="tmp-") as tmp:
@@ -81,6 +131,9 @@ def _compile(nvcc: str, target: pathlib.Path) -> None:
                      "-o", str(tmp_lib)], tmp)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+        tmp_info = pathlib.Path(tmp) / "ptxas.json"
+        tmp_info.write_text(json.dumps(parse_ptxas(proc.stdout + proc.stderr)))
+        os.replace(tmp_info, target.with_suffix(".ptxas.json"))
         os.replace(tmp_lib, target)
 
 
@@ -96,8 +149,10 @@ def load_library() -> ctypes.CDLL:
     reused = path.is_file()
     if not reused:
         _compile(nvcc, path)
+    info = path.with_suffix(".ptxas.json")
     build_info.update(library=str(path), reused=reused,
-                      seconds=time.perf_counter() - t0)
+                      seconds=time.perf_counter() - t0,
+                      ptxas=json.loads(info.read_text()) if info.is_file() else {})
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fpcnn_cc_label.argtypes = [p, p, p, i, i, i, p]

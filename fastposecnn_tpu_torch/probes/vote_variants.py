@@ -9,10 +9,12 @@ whose two Pallas kernels it ports:
 - P1, `kernel_b`: the counts as two small matrix products,
   dot = [hx, hy, 1] . [dx, dy, -(px*dx + py*dy)] (K = 3) and
   vsq = [hx^2, hy^2, hx, hy, 1] . [1, 1, -2px, -2py, px^2 + py^2] (K = 5);
-  here `kernels/vote_expanded_mma.cu`, 3xTF32 `mma.sync` on the tensor cores.
+  here `kernels/vote_expanded_mma.cu`: one 3xTF32 product on the tensor
+  cores (`wgmma`) whose columns alternate dot and t2*vsq, the split folded
+  into K = 16.
 - P2, `kernel_c`: the same expanded form as broadcast arithmetic, with
   cc = px*dx + py*dy and qq = px^2 + py^2 per point; here
-  `kernels/vote_expanded_bcast.cu` on the CUDA cores.
+  `kernels/vote_expanded_bcast.cu` on the CUDA cores, K2's structure.
 
 K2 (`ops/voting.py`) computes (h - p) . d and |h - p|^2 directly. The
 expanded form cancels (|h|^2 - 2h.p + |p|^2 loses about three digits at
@@ -63,15 +65,17 @@ _P_CHUNK = 512
 _BAND_CHUNK = 64
 
 # Operations a valid (m, h, p) cell needs, counted from each kernel's source:
-# K2 11 FP32 (2 sub, 6 mul, 3 add); P2 12 FP32 (7 mul, 3 add, 2 sub); P1 3
-# passes x (3 + 5) multiply-adds on the tensor cores (the K = 3 dot product
-# and the K = 5 vsq, 48 operations; the kernel pads both to K = 8, which the
-# bound does not count) and 2 FP32 multiplies in the epilogue. Compares and
-# the predicated add are not counted.
+# K2 11 FP32 (2 sub, 6 mul, 3 add); P2 11 FP32 (6 mul, 3 add, 2 sub:
+# `kernel_c`'s 2*(hx*px + hy*py) is hx*(2px) + hy*(2py), bitwise the same);
+# P1 3 passes x (3 + 5) multiply-adds on the tensor cores (the K = 3 dot
+# product and the K = 5 vsq, 48 operations; the kernel issues 64, two k8
+# steps of a (dot, vsq) column pair, which the bound does not count) and 1
+# FP32 multiply in the test (t2 is folded into the products). Compares and
+# the count's add are not counted.
 K2_FP32_OPS_PER_CELL = 11
-P2_FP32_OPS_PER_CELL = 12
+P2_FP32_OPS_PER_CELL = 11
 P1_TENSOR_OPS_PER_CELL = 3 * (3 + 5) * 2
-P1_FP32_OPS_PER_CELL = 2
+P1_FP32_OPS_PER_CELL = 1
 
 
 def make_inputs(m: int = 16, h: int = 4096, p: int = 1024, seed: int = 0):
@@ -92,6 +96,32 @@ def make_inputs(m: int = 16, h: int = 4096, p: int = 1024, seed: int = 0):
     pv = (rng.uniform(size=(m, p)) < 0.9).astype(np.float32)
     return (hyps.astype(np.float32), pts.astype(np.float32),
             d.astype(np.float32), pv)
+
+
+# The kernels' edge cases (M, H, P): the script's shape, K2's evaluated
+# shape, one hypothesis and one point, ragged under a tile, past a tile in
+# both dimensions and past P1's 1536-point chunk, H one past a 64-row tile,
+# M = 1, a slot whose pv is all 0, and valid-point counts that are no
+# multiple of a tile (`edge_inputs`).
+EDGE_CASES = {"script": (16, 4096, 1024), "eval": (64, 1000, 1024),
+              "one_by_one": (3, 1, 1), "ragged_under_tile": (2, 33, 31),
+              "past_tile": (9, 1921, 2100), "h_65": (4, 65, 130), "m_1": (1, 4096, 1024),
+              "zero_pv_slot": (4, 256, 1024), "ragged_valid": (3, 200, 1024)}
+
+
+def edge_inputs(name: str, seed: int = 0):
+    """`make_inputs` at `EDGE_CASES[name]`; in "zero_pv_slot" slot 1 has no
+    valid point, in "ragged_valid" the slots have 37, 33 and 342 (every
+    third) valid points."""
+    hyps, pts, dirs, pv = make_inputs(*EDGE_CASES[name], seed=seed)
+    if name == "zero_pv_slot":
+        pv[1] = 0
+    elif name == "ragged_valid":
+        pv[:] = 0
+        pv[0, :37] = 1
+        pv[1, 5:38] = 1
+        pv[2, ::3] = 1
+    return hyps, pts, dirs, pv
 
 
 def _count(dot, vsq, pv, t2):
@@ -173,19 +203,28 @@ def expanded_vote_band(hyps, pts, dirs, pvalid, inlier_thresh: float = INLIER_TH
     is within about 4 u (|ax dx| + |ay dy|) and 4 u vsq of the same values,
     and both are at most the expanded S, so its counts lie in the band too.
 
-    Why c = 32 for 3xTF32 (`BAND_C_3XTF32`, P1's kernel): operands are formed
-    in float32 as above (2 u). Splitting x into big = tf32(x) (11 bits,
-    |x - big| <= 2^-11 |x|) and small = tf32(x - big) leaves |x - big - small|
-    <= 2^-22 |x| = 4 u |x|; the product big*big + big*small + small*big then
-    misses a b by at most (4 + 4 + 4) u |a b| (the two split errors and the
-    dropped small*small). The tensor core multiplies TF32 exactly and adds in
-    float32 with truncation (alignment to the largest term and round toward
-    zero, as measured on earlier NVIDIA tensor cores by Fasi et al., 2021):
-    at most 2 u of the largest term for each of its K_eff + 1 addends and 2 u
-    more to normalise. The kernel adds the small products first, whose error
-    is 2^-11 smaller, and the big one last with the small sum as C: for vsq
-    (K_eff = 5) 2 u (5 + 1 + 1) = 14 u, for dot 10 u. In all, 2 + 12 + 14 = 28
-    for vsq and 24 for dot, below 32.
+    Why c = 32 for 3xTF32 (`BAND_C_3XTF32`, P1's kernel,
+    `kernels/vote_expanded_mma.cu`). The kernel computes dot = [hx, hy, 1] .
+    [dx, dy, -cc] and t2 * vsq = [hx, hy, 1, hsq] . [t2 (-2px), t2 (-2py),
+    t2 qq, t2], and tests dot > 0 and dot*dot > (t2 * vsq). Operands are
+    formed in float32: -cc in 2 roundings, t2 qq in 3, hsq in 2, t2 (-2px)
+    in 1, so within 2 u of dot's terms and 3 u of t2 vsq's. Splitting x into
+    big = tf32(x) (11 bits, |x - big| <= 2^-11 |x|) and small = tf32(x - big)
+    leaves |x - big - small| <= 2^-22 |x| = 4 u |x| (t2 is split too); the
+    product big*big + big*small + small*big then misses a b by at most
+    (4 + 4 + 4) u |a b| (the two split errors and the dropped small*small):
+    12 u. The tensor core multiplies TF32 exactly and adds in float32 with
+    truncation (alignment to the largest term and round toward zero, as
+    measured on earlier NVIDIA tensor cores by Fasi et al., 2021): at most
+    2 u of the largest term for each of its addends and 2 u more to
+    normalise. The kernel sums the small products first (one k8 step; their
+    sum is below 2^-10 S, so its error is below 0.02 u S), then the big ones
+    with the small sum as C, all four within one half of the second k8 step,
+    so a tensor core that adds a k8 step in two halves rounds them together
+    too: for t2 vsq (4 products + C) 2 u (5 + 1) = 12 u, for dot (3 + C)
+    10 u. In all, 3 + 12 + 12 = 27 u t2 S_vsq for t2 vsq, which lies inside
+    t2 (vsq -+ e_vsq) and needs no rounding of its own, and 2 + 12 + 10 = 24
+    u S_dot for dot: below 32.
     """
     u = 2.0 ** -24
     t2 = thresh_sq(inlier_thresh)

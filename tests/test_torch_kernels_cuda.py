@@ -137,15 +137,16 @@ def test_wrappers_reject_bad_tensors(cuda_device):
         vote_counts_cuda(hyps, pts[:, :3], pts, torch.zeros(2, 4, device=cuda_device), 0.999)
 
 
-@pytest.mark.parametrize("m,h,p", [
-    (16, 4096, 1024), (64, 1000, 1024),
-    # the edges of the probe kernels' tiles: one hypothesis and one point,
-    # ragged under one tile, and past a tile in both dimensions
-    (3, 1, 1), (2, 33, 31), (9, 1921, 2100)])
-def test_probe_kernels_match_reference(cuda_device, m, h, p):
+@pytest.mark.parametrize("case", list(V.EDGE_CASES))
+def test_probe_kernels_match_reference(cuda_device, case):
     """P2 (broadcasts, CUDA cores) exactly equal to its plain version; P1
-    (3xTF32 on the tensor cores) inside the rounding band derived for it."""
-    args = [torch.from_numpy(a).to(cuda_device) for a in V.make_inputs(m, h, p, seed=m)]
+    (3xTF32 on the tensor cores) inside the rounding band derived for it, at
+    the script's and the evaluated shape and at the edges of their tiles:
+    one hypothesis and one point, ragged under a tile, past a tile, H one
+    past a 64-row tile, M = 1, a slot with no valid point, valid counts that
+    are no multiple of a tile."""
+    m = V.EDGE_CASES[case][0]
+    args = [torch.from_numpy(a).to(cuda_device) for a in V.edge_inputs(case, seed=m)]
     kernels.reset_launch_counts()
     p1 = V.vote_counts_expanded_mm(*args)
     p2 = V.vote_counts_expanded_bcast(*args)

@@ -4,6 +4,7 @@ entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 import dataclasses
+import json
 import pathlib
 import subprocess
 import sys
@@ -162,6 +163,52 @@ def test_nvcc_lookup_order(monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path / "none"))
         with pytest.raises(RuntimeError, match="nvcc not found"):
             build.find_nvcc()
+
+
+# Lines as `nvcc -Xptxas -v` prints them on the card (abridged).
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN53_GLOBAL__N__3aa0f22d_20_vote_expanded_mma_cu_e052ecb924vote_expanded_mma_kernelEPK6float2S2_S2_PKfPfiiifii' for 'sm_90a'
+ptxas info    : Function properties for _ZN53_GLOBAL__N__3aa0f22d_20_vote_expanded_mma_cu_e052ecb924vote_expanded_mma_kernelEPK6float2S2_S2_PKfPfiiifii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 100 registers, used 1 barriers, 256 bytes smem, 400 bytes cmem[0]
+ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async instructions are serialized due to non wgmma instructions reading accumulator registers of  a wgmma between start and end of the pipeline stage in the function '_ZN12_GLOBAL__N_14kernILb1EEEvv'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__be2f8cbc_13_vote_count_cu_9981d1ad17vote_count_kernelEPK6float2S2_S2_PKfPKiPfiiif
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 39 registers, used 1 barriers, 4240 bytes smem, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_is_parsed():
+    from fastposecnn_tpu_torch.kernels import build
+
+    got = build.parse_ptxas(_PTXAS_LOG)
+    assert got["vote_expanded_mma_kernel"] == dict(
+        stack_bytes=0, spill_stores=0, spill_loads=0, registers=100, smem_bytes=256)
+    assert got["vote_count_kernel"] == dict(
+        stack_bytes=8, spill_stores=4, spill_loads=4, registers=39, smem_bytes=4240)
+    assert got["kern"]["notes"][0].startswith("ptxas info    : (C7514)")
+    assert build._kernel_name("_Z9my_kerneli") == "my_kernel"
+
+
+def test_build_keeps_the_ptxas_report(monkeypatch, tmp_path):
+    """The build passes -Xptxas -v and keeps what the compiler reports beside
+    the library, so a reused library reports it too."""
+    from fastposecnn_tpu_torch.kernels import build
+
+    assert ("-Xptxas", "-v") in zip(build.NVCC_FLAGS, build.NVCC_FLAGS[1:])
+    nvcc = tmp_path / "nvcc"
+    log = tmp_path / "ptxas.log"
+    log.write_text(_PTXAS_LOG)
+    # A stand-in nvcc: writes its -o target and prints the report on stderr.
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    f'touch "$2"\ncat "{log}" >&2\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    target = tmp_path / "build" / "libfpcnn_kernels_test.so"
+    build._compile(str(nvcc), target)
+    assert target.is_file()
+    report = json.loads(target.with_suffix(".ptxas.json").read_text())
+    assert report == json.loads(json.dumps(build.parse_ptxas(_PTXAS_LOG)))
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -8,7 +8,9 @@ unchanged. The expanded form they compute cancels, so neither framework is
 bit-equal to the other: the parity check is the rounding band of
 `expanded_vote_band` (c = 8 for float32, derived in its docstring), and the
 band is checked to be sound (it holds the exact float64 counts and K2's)
-and narrower than the trivial [0, sum pv].
+and narrower than the trivial [0, sum pv]. The CUDA kernels' arithmetic is
+emulated in numpy: P2's order bit for bit against its plain version, P1's
+folded 3xTF32 layout against float64 and the c = 32 band.
 """
 
 import ast
@@ -132,25 +134,164 @@ def test_band_is_sound_and_not_vacuous(m, h, p):
     assert (lo32.numpy() <= lo).all() and (hi <= hi32.numpy()).all()
 
 
-@pytest.mark.parametrize("m,h,p", [(8, 128, 512), (2, 33, 31), (3, 1, 1)])
-def test_bcast_reference_is_the_kernels_order(m, h, p):
+def _crafted_inputs(m, h, p, seed):
+    """Coordinates far from the probe's: magnitudes from 1e-3 to 1e6 of
+    either sign, integers (exact products and ties), points on hypotheses
+    (dot = vsq = 0), unnormalised directions; pv 0 or 1."""
+    rng = np.random.default_rng(seed)
+    mag = 10.0 ** rng.uniform(-3, 6, size=(m, 1, 1))
+    hyps = (rng.normal(size=(m, h, 2)) * mag).astype(np.float32)
+    pts = (rng.normal(size=(m, p, 2)) * mag).astype(np.float32)
+    pts[:, ::3] = np.round(pts[:, ::3])
+    hyps[:, ::2] = np.round(hyps[:, ::2])
+    pts[:, 1, :] = hyps[:, 0, :]
+    dirs = rng.normal(size=(m, p, 2)).astype(np.float32)
+    pv = (rng.uniform(size=(m, p)) < 0.7).astype(np.float32)
+    return hyps, pts, dirs, pv
+
+
+_ORDER_CASES = [("probe", (8, 128, 512)), ("probe", (2, 33, 31)), ("probe", (3, 1, 1)),
+                ("edge", "h_65"), ("edge", "zero_pv_slot"), ("edge", "ragged_valid"),
+                ("crafted", (4, 96, 300)), ("crafted", (2, 17, 1000))]
+
+
+def _order_inputs(kind, what, seed):
+    if kind == "probe":
+        return V.make_inputs(*what, seed=seed)
+    if kind == "edge":
+        return V.edge_inputs(what, seed=seed)
+    return _crafted_inputs(*what, seed=seed)
+
+
+@pytest.mark.parametrize("kind,what", _ORDER_CASES)
+def test_bcast_reference_is_the_kernels_order(kind, what):
     """P2's plain version equals, bit for bit, numpy float32 in the order
-    the CUDA kernel computes each cell (which the card holds exactly equal)."""
-    hyps, pts, dirs, pv = V.make_inputs(m, h, p, seed=m)
-    hx, hy = hyps[..., 0, None], hyps[..., 1, None]
-    px, py = pts[:, None, :, 0], pts[:, None, :, 1]
-    dx, dy = dirs[:, None, :, 0], dirs[:, None, :, 1]
-    cc = px * dx + py * dy
-    qq = px * px + py * py
-    hsq = hx * hx + hy * hy
-    dot = (hx * dx + hy * dy) - cc
-    vsq = (hsq - np.float32(2.0) * (hx * px + hy * py)) + qq
+    the CUDA kernel computes each cell (which the card holds exactly equal):
+    hx*(2px) + hy*(2py) in place of `kernel_c`'s 2*(hx*px + hy*py), and an
+    integer count of the valid points that pass."""
+    hyps, pts, dirs, pv = _order_inputs(kind, what, seed=7)
     t2 = np.float32(V.thresh_sq(0.999))
-    want = np.where((dot > 0) & (dot * dot > t2 * vsq), pv[:, None, :],
-                    np.float32(0)).sum(-1, dtype=np.float32)
+    hx, hy = hyps[..., 0, None], hyps[..., 1, None]
+    hsq = hx * hx + hy * hy
+    want = np.zeros(hyps.shape[:2], np.int64)
+    for s in range(0, pts.shape[1], 128):
+        c = slice(s, s + 128)
+        px, py = pts[:, None, c, 0], pts[:, None, c, 1]
+        dx, dy = dirs[:, None, c, 0], dirs[:, None, c, 1]
+        cc = px * dx + py * dy
+        qq = px * px + py * py
+        px2, py2 = np.float32(2.0) * px, np.float32(2.0) * py
+        dot = (hx * dx + hy * dy) - cc
+        vsq = (hsq - (hx * px2 + hy * py2)) + qq
+        inlier = (dot > 0) & (dot * dot > t2 * vsq) & (pv[:, None, c] != 0)
+        want += inlier.sum(-1)
     got = V.vote_counts_expanded_bcast_reference(
         *(torch.from_numpy(a) for a in (hyps, pts, dirs, pv)))
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+
+
+def _tf32(x):
+    """Round float32 to TF32 as the kernel does (`cvt.rna.tf32.f32`: nearest,
+    ties away from zero; then the 13 low bits cleared)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(np.float32(x) - big)
+
+
+def _p1_folded(hyps, pts, dirs, t2, chunk=64):
+    """P1's arithmetic as `kernels/vote_expanded_mma.cu` lays it out, in
+    numpy: A', A'' and the (dot, t2*vsq) columns of B', B'' split into TF32
+    as the kernel splits them, the small products of step 1 summed first,
+    then the four big products of step 2 added to that sum, in float32 with
+    round to nearest (each TF32 product is exact in float64). Yields (chunk
+    slice, dot, t2*vsq) as float32 [M, H, chunk]."""
+    f32 = np.float32
+    hx, hy = hyps[..., 0, None], hyps[..., 1, None]
+    hsq = hx * hx + hy * hy
+    (hxb, hxs), (hyb, hys), (hqb, hqs) = _split(hx), _split(hy), _split(hsq)
+    t2b, t2s = _split(np.full((1, 1, 1), t2, np.float32))
+    one = f32(1.0)
+    a1 = [hxs, hxb, hys, hyb, one, hqs, hqb]      # A', step 1 (feature 7 is 0)
+    a2 = [hxb, hyb, one, hqb]                     # A'', step 2 (features 4-7 are 0)
+    for s in range(0, pts.shape[1], chunk):
+        c = slice(s, s + chunk)
+        px, py = pts[:, None, c, 0], pts[:, None, c, 1]
+        dx, dy = dirs[:, None, c, 0], dirs[:, None, c, 1]
+        ncc = -(px * dx + py * dy)
+        npx, npy = t2 * (f32(-2.0) * px), t2 * (f32(-2.0) * py)
+        tqq = t2 * (px * px + py * py)
+        (dxb, dxs), (dyb, dys), (nb, ns) = _split(dx), _split(dy), _split(ncc)
+        (pxb, pxs), (pyb, pys), (qb, qs) = _split(npx), _split(npy), _split(tqq)
+        zero = np.zeros_like(dxb)
+        cols = {"dot": ([dxb, dxs, dyb, dys, ns, zero, zero], [dxb, dyb, nb, zero]),
+                "tvsq": ([pxb, pxs, pyb, pys, qs, t2b + zero, t2s + zero],
+                         [pxb, pyb, qb, t2b + zero])}
+        out = []
+        for b1, b2 in cols.values():
+            acc = np.zeros(np.broadcast_shapes(hx.shape, dxb.shape), np.float32)
+            for a, b in zip(a1 + a2, b1 + b2):
+                acc = (acc.astype(np.float64) + np.float64(a) * np.float64(b)).astype(np.float32)
+            out.append(acc)
+        yield c, out[0], out[1]
+
+
+_P1_CASES = [("probe", (8, 128, 512)), ("probe", (2, 33, 31)), ("edge", "h_65"),
+             ("edge", "ragged_valid"), ("crafted", (4, 96, 300))]
+
+
+@pytest.mark.parametrize("kind,what", _P1_CASES)
+def test_p1_folded_layout_lies_in_the_band(kind, what):
+    """P1's folded layout, emulated: its dot and t2*vsq lie within 32 u S of
+    the float64 values (the budget `expanded_vote_band` derives for the
+    kernel's order: 24 u and 27 u), and its counts, tested as the kernel
+    tests (dot > 0 and dot*dot > t2*vsq), lie inside the c = 32 band."""
+    hyps, pts, dirs, pv = _order_inputs(kind, what, seed=5)
+    u = 2.0 ** -24
+    t2 = np.float32(V.thresh_sq(0.999))
+    counts = np.zeros(hyps.shape[:2], np.float64)
+    h64 = hyps.astype(np.float64)
+    hx, hy = h64[..., 0, None], h64[..., 1, None]
+    worst = 0.0
+    for c, dot, tvsq in _p1_folded(hyps, pts, dirs, t2):
+        px, py = pts[:, None, c, 0].astype(np.float64), pts[:, None, c, 1].astype(np.float64)
+        dx, dy = dirs[:, None, c, 0].astype(np.float64), dirs[:, None, c, 1].astype(np.float64)
+        ax, ay = hx - px, hy - py
+        s_dot = np.abs(hx * dx) + np.abs(hy * dy) + np.abs(px * dx) + np.abs(py * dy)
+        s_vsq = hx * hx + hy * hy + 2 * np.abs(hx * px) + 2 * np.abs(hy * py) + px * px + py * py
+        for err, scale in ((np.abs(dot - (ax * dx + ay * dy)), u * s_dot),
+                           (np.abs(tvsq - np.float64(t2) * (ax * ax + ay * ay)),
+                            u * np.float64(t2) * s_vsq)):
+            # S = 0 only where every term is 0, and then so is the error.
+            ratio = np.divide(err, scale, out=np.where(err > 0, np.inf, 0.0), where=scale > 0)
+            worst = max(worst, float(ratio.max()))
+        inlier = (dot > 0) & (dot * dot > tvsq)
+        counts += (inlier * pv[:, None, c]).sum(-1)
+    assert worst <= V.BAND_C_3XTF32
+    lo, hi = V.expanded_vote_band(*(torch.from_numpy(a) for a in (hyps, pts, dirs, pv)),
+                                  c=V.BAND_C_3XTF32)
+    assert _in_band(counts, lo.numpy(), hi.numpy())
+
+
+@pytest.mark.parametrize("case", list(V.EDGE_CASES))
+def test_edge_inputs(case):
+    """The card's edge cases: the script's inputs at their shape, with the
+    stated valid points."""
+    m, h, p = V.EDGE_CASES[case]
+    hyps, pts, dirs, pv = V.edge_inputs(case, seed=m)
+    want = V.make_inputs(m, h, p, seed=m)
+    for got, w in zip((hyps, pts, dirs), want):
+        np.testing.assert_array_equal(got, w)
+    valid = (pv != 0).sum(-1)
+    if case == "zero_pv_slot":
+        assert valid[1] == 0 and valid.sum() > 0
+    elif case == "ragged_valid":
+        assert valid.tolist() == [37, 33, 342]
+    else:
+        np.testing.assert_array_equal(pv, want[3])
 
 
 @pytest.mark.parametrize("name", ["mm", "bcast"])
