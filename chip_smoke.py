@@ -12,8 +12,11 @@ and through their plain versions, holds the vote-variant probe's kernels
 and the rounding band, serves a few full-width requests through
 `InferenceServer`, evaluates a few synthetic scenes through the evaluate
 CLI, runs the probe (`probes/vote_variants.py`) and the held-out recipe
-of BASELINE.md with the trained FULL_c5 checkpoint (the paths: the
-kernels' launch counters are reset just before each and read just after),
+of BASELINE.md with the trained FULL_c5 checkpoint, and trains at full
+width: 8 MASK_TRAINING and 6 HEAD_TRAINING steps (the paths: the kernels'
+launch counters are reset just before each and read just after), holds a
+HEAD_TRAINING step through the kernels against one through their plain
+versions and a reduced-size step on the card against the CPU,
 measures what TF32 would change in the network (and checks that the entry
 points' float32 does not reuse a convolution algorithm that cuDNN's
 heuristics chose outside them), checks that a served frame enqueues with
@@ -21,7 +24,8 @@ no host sync until it reads the CC kernel's error flag at its end, and
 times the kernels at the served and the evaluated shapes (K1 beside its
 floor: its launches with empty kernels), their plain versions, the
 adaptive loop's host syncs, 30 served frames, and what a host sync right
-after K1 cost the frame, with CUDA events. Everything runs
+after K1 cost the frame, and the train steps of each preset with the
+share of a HEAD_TRAINING step spent voting, with CUDA events. Everything runs
 in full float32 (TF32 off), as the port's entry points compute, but for
 the network's TF32 timing, which sets the flags around a direct call.
 
@@ -53,7 +57,6 @@ import torch
 from fastposecnn_tpu_torch.utils.timer import (
     FP32_UNFUSED_OPS_PER_S,
     HBM_BYTES_PER_S,
-    device_us_by_kernel,
     event_ms,
     kernel_trace,
     loop_ms,
@@ -750,20 +753,21 @@ def time_vote(dev, lib, smi, name, hyps, pts, dirs, pv, act32):
     bound, by = vote_bound(pv, act32, hh, (hyps, pts, dirs, pv, act32, counts))
     line = dict(kernel="vote_count", shape=[mm, hh, pp], active=n_act, ms=ms,
                 plain_ms=plain, bound_ms=bound, bound_by=by,
-                device_us_by_kernel=device_us_by_kernel(call))
+                device_us_by_kernel=whole_trace(call)[0][0])
     emit("timing", what=name, card=smi, **line)
     return line
 
 
-def whole_trace(fn, tries=3):
-    """`kernel_trace(fn)` and the number of traces taken. A trace whose
-    device events are not a whole number per call lost one (every call
-    launches the same kernels; a trace of 20 calls of K1 on the card once
-    held 59 of its 60 launches), so it is taken again, up to `tries` times;
-    the caller's check sees the last."""
+def whole_trace(fn, calls=20, whole=True, tries=4):
+    """`kernel_trace(fn, calls)` and the number of traces taken. Every `fn`
+    traced here runs work on the card, so a trace that holds no device event
+    lost it all (a trace of 20 calls of K1 on the card once came back empty),
+    and with `whole` a trace whose device events are not a whole number per
+    call lost some (one once held 59 of its 60 launches): either is taken
+    again, up to `tries` times; the caller's check sees the last."""
     for n in range(1, tries + 1):
-        result = kernel_trace(fn)
-        if result[1] == int(result[1]):
+        result = kernel_trace(fn, calls)
+        if result[1] > 0 and (not whole or result[1] == int(result[1])):
             break
     return result, n
 
@@ -915,12 +919,12 @@ def phase_timing(dev, server, image, launches, errs, smi):
     # 10 frames in a profiler trace, one stream) against that median.
     frames = event_ms(lambda: server(image), iters=30)
     frame_ms = statistics.median(frames)
-    busy_us, device_ops = kernel_trace(lambda: server(image), calls=10)
+    (busy_us, device_ops), traces = whole_trace(lambda: server(image), calls=10, whole=False)
     busy_ms = sum(busy_us.values()) / 1e3
     emit("timing", what="served_frame", shape=[1, 3, H, W], frames=len(frames),
          ms=frame_ms, quartiles_ms=[float(q) for q in np.percentile(frames, [25, 75])],
          fps=1e3 / frame_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / frame_ms,
-         device_ops_per_frame=device_ops, **card)
+         device_ops_per_frame=device_ops, traces=traces, **card)
 
     # What K1's flag read cost the frame before the entry points deferred
     # it: the served frame as it runs against the same stages with K1's
@@ -1102,6 +1106,290 @@ def phase_held_out(dev):
                         table_aps_mean=tf32["table_aps_mean"]))
 
 
+# -----------------------------------------------------------------------------
+# Training
+
+
+def train_setup(dev, preset, seed, h=H, w=W, classes=7, batch=3, **overrides):
+    """A port train step at `preset`, with seeded random weights and a batch
+    of seeded synthetic scenes on `dev`."""
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch.constants import CAMERA_CLASSES, scaled_intrinsics
+    from fastposecnn_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from fastposecnn_tpu_torch.models import PoseRegressorNet
+    from fastposecnn_tpu_torch.models.weights import init_random_
+    from fastposecnn_tpu_torch.train import task as T
+
+    hp = preset(IMAGE_HEIGHT=h, IMAGE_WIDTH=w, SELECTED_CLASSES=CAMERA_CLASSES[:classes],
+                BATCH_SIZE=batch, **overrides)
+    net = init_random_(PoseRegressorNet(hp.num_classes), seed).to(dev)
+    opt = T.make_optimizer(hp, net)
+    scenes = SceneConfig(height=h, width=w, num_classes=classes,
+                         max_instances=hp.MAX_INSTANCES, max_scene_instances=6)
+    data = T.upcast_batch(make_batch(np.random.default_rng(seed), scenes, batch), dev)
+    inv_k = np.linalg.inv(scaled_intrinsics("CAMERA", h, w))
+    pcfg = C.pipeline_config_from(hp)
+    return dict(hp=hp, opt=opt, pcfg=pcfg, inv_k=inv_k, batch=data,
+                state=T.create_train_state(net, opt),
+                step=T.make_train_step(net, opt, hp, pcfg, inv_k, dev))
+
+
+def timed_steps(run, n, seed=0):
+    """`n` steps of run["step"] from run["state"] (updated), each timed with
+    CUDA events, and the time of its hough-voting stage (events around
+    `pipeline.stage_hough_voting`). Returns (logs, step ms, voting ms)."""
+    from fastposecnn_tpu_torch import pipeline as P
+
+    original, spans = P.stage_hough_voting, []
+
+    def timed_vote(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    logs, ms, vote_ms = [], [], []
+    P.stage_hough_voting = timed_vote
+    try:
+        for _ in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run["state"], step_logs = run["step"](run["state"], run["batch"], seed=seed)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            vote_ms.append(sum(s.elapsed_time(e) for s, e in spans))
+            spans.clear()
+            logs.append({k: float(v) for k, v in step_logs.items()})
+    finally:
+        P.stage_hough_voting = original
+    return logs, ms, vote_ms
+
+
+def phase_train(dev, smi):
+    """The training path at full width (480x640, 7 classes, ResNet18 and four
+    FPN decoders, batch 3, seeded random weights, in-memory synthetic
+    scenes): 8 MASK_TRAINING steps at LEARNING_RATE 3e-3 (the loss falls,
+    the frozen heads stay bit-equal, the mask head moves, no kernel runs)
+    and 6 HEAD_TRAINING steps with the preset's defaults (16 instance slots,
+    1024 vote points, 128 hypotheses a round, adaptive): finite losses and
+    gradients, no skipped update, one Lookahead sync, K1 once a step and K2
+    once a RANSAC round. Times each step with CUDA events (the first step
+    of each preset, with cuDNN's autotuning, is left out of the medians),
+    the share of a HEAD step spent in hough voting, and from a profiler
+    trace of 3 more steps the device's busy time a step (its kernels' sum),
+    the idle share against the median step and the costliest kernels.
+    Launch counts are read before the traced steps."""
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch import kernels
+    from fastposecnn_tpu_torch.train.optim import frozen_modules
+
+    mask = train_setup(dev, C.mask_training, seed=11, LEARNING_RATE=3e-3)
+    net = mask["state"].net
+    frozen = {n: p.detach().clone() for n, p in net.named_parameters()
+              if n.split(".")[0] in frozen_modules(mask["hp"])}
+    head0 = [p.detach().clone() for p in net.segmentation_head.parameters()]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    mask_logs, mask_ms, _ = timed_steps(mask, 8)
+    mask_launches = kernels.launch_counts()
+    losses = [lg["pose/total_loss"] for lg in mask_logs]
+    if not losses[-1] < losses[0] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"MASK_TRAINING loss did not fall: {losses}")
+    if any(not torch.equal(p, frozen[n]) for n, p in net.named_parameters() if n in frozen):
+        raise AssertionError("a frozen module moved under MASK_TRAINING")
+    if all(torch.equal(a, b) for a, b in zip(head0, net.segmentation_head.parameters())):
+        raise AssertionError("the mask head did not move under MASK_TRAINING")
+    if any(mask_launches.values()) or mask["state"].skipped_updates:
+        raise AssertionError(f"MASK_TRAINING launched {mask_launches} or skipped "
+                             f"{mask['state'].skipped_updates} updates")
+
+    head = train_setup(dev, C.head_training, seed=12)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    head_logs, head_ms, vote_ms = timed_steps(head, 6)
+    head_launches = kernels.launch_counts()
+    st = head["state"]
+    rounds = [int(lg["pose/vote_rounds"]) for lg in head_logs]
+    if not all(math.isfinite(v) for lg in head_logs for v in lg.values()):
+        raise AssertionError(f"non-finite HEAD_TRAINING logs: {head_logs}")
+    if any(lg["grad/finite"] != 1.0 for lg in head_logs) or st.skipped_updates:
+        raise AssertionError(f"HEAD_TRAINING skipped {st.skipped_updates} updates")
+    if (st.step, st.opt_state.count, st.opt_state.lookahead_step) != (6, 6, 6):
+        raise AssertionError(f"HEAD_TRAINING state counts {st}")
+    if head_launches["cc_label"] != 6 or head_launches["vote_count"] != sum(rounds):
+        raise AssertionError(f"HEAD_TRAINING launches {head_launches}, rounds {rounds}")
+    med_mask, med_head = statistics.median(mask_ms[1:]), statistics.median(head_ms[1:])
+    share = [v / t for v, t in zip(vote_ms[1:], head_ms[1:])]
+    busy = {}
+    for name, run, med in (("mask_training", mask, med_mask), ("head_training", head, med_head)):
+        def one_step(run=run):
+            run["state"], _ = run["step"](run["state"], run["batch"], seed=1)
+        (by_kernel, launches), traces = whole_trace(one_step, calls=3, whole=False)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        busy[name] = dict(device_busy_ms=sum(by_kernel.values()) / 1e3,
+                          idle_share=1 - sum(by_kernel.values()) / 1e3 / med,
+                          device_ops_per_step=launches, traces=traces,
+                          top_kernels_us=[[k[:80], v] for k, v in top])
+    emit("train", card=smi, hw=[H, W], batch=3, classes=7,
+         mask_training=dict(steps=8, ms_per_step_median=med_mask, ms_per_step=mask_ms,
+                            images_per_s=3e3 / med_mask, total_loss=losses,
+                            launches=mask_launches, **busy["mask_training"]),
+         head_training=dict(steps=6, ms_per_step_median=med_head, ms_per_step=head_ms,
+                            images_per_s=3e3 / med_head,
+                            voting_ms=vote_ms, voting_share_median=statistics.median(share),
+                            vote_rounds=rounds, launches=head_launches,
+                            launches_per_step={k: v / 6 for k, v in head_launches.items()},
+                            total_loss=[lg["pose/total_loss"] for lg in head_logs],
+                            grad_global_norm=[lg["grad/global_norm"] for lg in head_logs],
+                            lookahead_step=st.opt_state.lookahead_step,
+                            **busy["head_training"]))
+    return {k: mask_launches[k] + head_launches[k] for k in head_launches}
+
+
+def recorded(module, name, sink):
+    """Replace `module.name` by a wrapper that appends each result to
+    `sink`; returns the original."""
+    original = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        out = original(*args, **kwargs)
+        sink.append(out.detach().clone())
+        return out
+
+    setattr(module, name, wrapper)
+    return original
+
+
+def phase_train_kernels(dev):
+    """One full-width HEAD_TRAINING step from one state through the kernels
+    and through their plain versions (`impl="reference"`): the CC labels,
+    every round's vote counts and the rounds exactly equal; the logs,
+    gradients, updated parameters and BatchNorm statistics at the golden
+    tolerance (atol 2e-4, rtol 1e-4)."""
+    import copy
+
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch.ops import aggregation, voting
+    from fastposecnn_tpu_torch.train import task as T
+
+    run = train_setup(dev, C.head_training, seed=13)
+    ref_net = copy.deepcopy(run["state"].net)
+    ref = dict(run, state=T.TrainState(ref_net, copy.deepcopy(run["state"].opt_state)),
+               step=T.make_train_step(ref_net, run["opt"], run["hp"],
+                                      dataclasses.replace(run["pcfg"], impl="reference"),
+                                      run["inv_k"], dev))
+    seen = {}
+    for name, r in (("kernels", run), ("reference", ref)):
+        labels, counts = [], []
+        orig_cc = recorded(aggregation, "label_components", labels)
+        orig_vote = recorded(voting, "vote_counts", counts)
+        try:
+            r["state"], logs = r["step"](r["state"], r["batch"], seed=3)
+        finally:
+            aggregation.label_components, voting.vote_counts = orig_cc, orig_vote
+        seen[name] = dict(labels=labels, counts=counts, logs=logs)
+    a, b = seen["kernels"], seen["reference"]
+    if len(a["counts"]) != len(b["counts"]) or int(a["logs"]["pose/vote_rounds"]) != len(b["counts"]):
+        raise AssertionError(f"rounds differ: {len(a['counts'])} vs {len(b['counts'])}")
+    for x, y in zip(a["labels"] + a["counts"], b["labels"] + b["counts"]):
+        if not torch.equal(x, y):
+            raise AssertionError("a kernel's output inside the train step differs from its "
+                                 "plain version")
+    worst = {}
+
+    def hold(what, got, want):
+        if got is None or want is None:  # a parameter no loss reaches
+            if (got is None) != (want is None):
+                raise AssertionError(f"{what}: a gradient only one side has")
+            return
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        worst[what] = max(worst.get(what, 0.0), err)
+        if not torch.allclose(got, want, atol=2e-4, rtol=1e-4):
+            raise AssertionError(f"{what}: kernels and plain versions differ by {err}")
+
+    for k in b["logs"]:
+        hold("logs", a["logs"][k], b["logs"][k])
+    params = dict(ref["state"].net.named_parameters())
+    for n, p in run["state"].net.named_parameters():
+        hold("grads", p.grad, params[n].grad)
+    ref_sd = ref["state"].net.state_dict()
+    for n, t in run["state"].net.state_dict().items():
+        hold("params_and_batch_stats", t.float(), ref_sd[n].float())
+    emit("train_kernels", hw=[H, W], batch=3, tolerance=dict(
+        cc_labels="exact", vote_counts="exact", rounds="exact", logs_grads_params=dict(
+            atol=2e-4, rtol=1e-4)), rounds=len(b["counts"]), max_abs_diff=worst)
+
+
+def phase_train_cpu(dev, h=96, w=128):
+    """One HEAD_TRAINING step at a reduced size (96x128, 7 classes, batch 2,
+    8 slots, 256 points, 64 hypotheses) from one seeded state, on the card
+    and through the port on the CPU, with the same dropout masks and vote
+    draws. Exact: the rounds and the matched count. The logs, updated
+    parameters and BatchNorm statistics at the golden tolerance, but the
+    matched xy loss within 0.1 (the voted centres may move by up to 0.05 px
+    where the card's compiler contracts the hypotheses' multiply-adds, as
+    compiled JAX does: ROADMAP.md C4). The gradients in L2 per tensor,
+    within 2e-3 of the CPU's norm: a pre-activation at a ReLU's kink can
+    fall on the other side on the other device (tests/torch_train_helpers.py)."""
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch.ops.voting import VoteDraws
+
+    kw = dict(h=h, w=w, batch=2, MAX_INSTANCES=8, MAX_VOTE_POINTS=256, HV_NUM_OF_HYPOTHESES=64)
+    card, cpu = (train_setup(d, C.head_training, seed=14, **kw)
+                 for d in (dev, torch.device("cpu")))
+    hp, gen = cpu["hp"], torch.Generator().manual_seed(5)
+    keep = cpu["state"].net.draw_dropout_keep(2, "cpu", gen)
+    b, n, p = 2, hp.MAX_INSTANCES, hp.MAX_VOTE_POINTS
+    draws = VoteDraws(ux=torch.rand((b, n, p), generator=gen),
+                      uy=torch.rand((b, n, p), generator=gen),
+                      pairs=torch.randint(0, p, (20, b * n, hp.HV_NUM_OF_HYPOTHESES, 2),
+                                          generator=gen))
+    out = {}
+    for name, r, d in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
+        r_draws = VoteDraws(ux=draws.ux.to(d), uy=draws.uy.to(d), pairs=draws.pairs.to(d))
+        r["state"], logs = r["step"](r["state"], r["batch"], seed=0,
+                                     dropout_keep={k: v.to(d) for k, v in keep.items()},
+                                     draws=r_draws)
+        out[name] = {k: float(v) for k, v in logs.items()}
+    a, want = out["card"], out["cpu"]
+    for k in ("pose/vote_rounds", "pose/num_matched"):
+        if a[k] != want[k]:
+            raise AssertionError(f"{k}: card {a[k]}, CPU {want[k]}")
+    log_err = {}
+    for k, v in want.items():
+        tol = 0.1 if k == "xy/loss_xy" else 2e-4 + 1e-4 * abs(v)
+        log_err[k] = abs(a[k] - v)
+        if not log_err[k] <= tol:
+            raise AssertionError(f"log {k}: card {a[k]}, CPU {v}")
+    grad_rel = 0.0
+    cpu_params = dict(cpu["state"].net.named_parameters())
+    for name, q in card["state"].net.named_parameters():
+        g, gc = q.grad, cpu_params[name].grad
+        if gc is None or not gc.any():
+            if g is not None and g.any():
+                raise AssertionError(f"grad {name}: the CPU gives none")
+            continue
+        rel = float((g.cpu() - gc).norm() / gc.norm())
+        grad_rel = max(grad_rel, rel)
+        if not rel <= 2e-3:
+            raise AssertionError(f"grad {name}: relative L2 difference {rel}")
+    cpu_sd = cpu["state"].net.state_dict()
+    param_err = 0.0
+    for name, t in card["state"].net.state_dict().items():
+        t, tc = t.cpu().float(), cpu_sd[name].float()
+        param_err = max(param_err, float((t - tc).abs().max()))
+        if not torch.allclose(t, tc, atol=2e-4, rtol=1e-4):
+            raise AssertionError(f"{name}: card and CPU differ")
+    emit("train_cpu", hw=[h, w], batch=2, rounds=int(want["pose/vote_rounds"]),
+         num_matched=want["pose/num_matched"], tolerance=dict(
+             logs=dict(atol=2e-4, rtol=1e-4, xy_loss_atol=0.1), grads_relative_l2=2e-3,
+             params_and_batch_stats=dict(atol=2e-4, rtol=1e-4)),
+         max_log_diff=log_err, max_grad_relative_l2=grad_rel, max_param_diff=param_err)
+
+
 def phase_network_precision(dev, server, smi, pairs=10):
     """What computing in float32 costs and buys in the network alone at
     480x640: the served network (seeded random weights, random images) and
@@ -1115,7 +1403,12 @@ def phase_network_precision(dev, server, smi, pairs=10):
     defaults but TF32 off), which leaves the algorithms they chose (a slow
     FFT one among them) in PyTorch's cache, and after it the same network
     in `full_float32()`, which must not reuse them: at most 1.5 times its
-    float32 time at batch 3."""
+    float32 time at batch 3. The same order for a caller that already
+    computes in float32 with deterministic algorithms (TF32 off,
+    `cudnn.deterministic` on, `cudnn.benchmark` off, flags a train loop may
+    set for reproducibility) runs in a fresh process
+    (`deterministic_caller_order_check`), as PyTorch's algorithm cache is
+    one per process."""
     from fastposecnn_tpu_torch.data.loader import upcast_image
     from fastposecnn_tpu_torch.data.synthetic import SceneConfig, generate_scene
     from fastposecnn_tpu_torch.device import full_float32
@@ -1168,19 +1461,19 @@ def phase_network_precision(dev, server, smi, pairs=10):
                         (on["mask"].argmax(1) != off["mask"].argmax(1)).sum()))
         net, images = nets["random_weights"]
         x = images[:2]
+        limit_ms = 1.5 * out["random_weights_b3"]["ms_float32"]
+
+        def float32_b2():
+            with full_float32():
+                net(x)
+
         with heuristics(False):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             net(x)
             torch.cuda.synchronize()
             first_ms = (time.perf_counter() - t0) * 1e3
-
-        def float32_b2():
-            with full_float32():
-                net(x)
-
         after_ms = median_ms(float32_b2, iters=5, warmup=1)
-        limit_ms = 1.5 * out["random_weights_b3"]["ms_float32"]
         out["order_check_b2"] = dict(float32_heuristics_first_call_ms=first_ms,
                                      full_float32_after_ms=after_ms, limit_ms=limit_ms)
         if not after_ms <= limit_ms:
@@ -1188,8 +1481,64 @@ def phase_network_precision(dev, server, smi, pairs=10):
                 f"full_float32() at batch 2 takes {after_ms} ms after a float32 call "
                 f"under cuDNN's heuristics ({first_ms} ms), over {limit_ms} ms: it "
                 f"reused the heuristics' algorithms")
+    proc = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
+                           "--deterministic-caller-order-check"],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"the deterministic caller's order check failed:\n{proc.stderr}")
+    det = json.loads(proc.stdout.strip().splitlines()[-1])
+    det["limit_ms"] = limit_ms
+    out["order_check_b2_deterministic_caller"] = det
+    if not det["full_float32_after_ms"] <= limit_ms:
+        raise AssertionError(
+            f"full_float32() at batch 2 takes {det['full_float32_after_ms']} ms after a "
+            f"float32 call with deterministic algorithms under cuDNN's heuristics "
+            f"({det['caller_first_call_ms']} ms), over {limit_ms} ms: it reused that "
+            "caller's algorithms")
     emit("network_precision", hw=[H, W], pairs=pairs, card=smi, **out)
     return out
+
+
+def deterministic_caller_order_check():
+    """Run as `chip_smoke.py --deterministic-caller-order-check`, in a fresh
+    process: the network with seeded random weights at batch 2, 480x640,
+    called once in float32 by a caller with deterministic algorithms and no
+    timing (TF32 off, `cudnn.deterministic` on, `cudnn.benchmark` off),
+    which leaves the algorithms of cuDNN's heuristics in PyTorch's cache;
+    then timed in `full_float32()`. Then, not checked but recorded, what
+    `device.full_float32` cannot separate: a second caller at the same
+    shape with `cudnn.deterministic` off, and `full_float32()` after it.
+    Prints one JSON line."""
+    from fastposecnn_tpu_torch.device import full_float32
+    from fastposecnn_tpu_torch.models import PoseRegressorNet
+    from fastposecnn_tpu_torch.models.weights import init_random_
+
+    dev = torch.device("cuda")
+    net = init_random_(PoseRegressorNet(7), 0).to(dev).eval()
+    x = torch.randn((2, 3, H, W), generator=torch.Generator(dev).manual_seed(321), device=dev)
+    set_tf32(False, False)
+    torch.backends.cudnn.benchmark = False
+
+    def caller_call(deterministic):
+        torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net(x)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def float32_b2():
+        with full_float32():
+            net(x)
+
+    with torch.inference_mode():
+        first_ms = caller_call(True)
+        after_ms = median_ms(float32_b2, iters=5, warmup=1)
+        second_ms = caller_call(False)
+        residual_ms = median_ms(float32_b2, iters=3, warmup=1)
+    print(json.dumps(dict(caller_first_call_ms=first_ms, full_float32_after_ms=after_ms,
+                          second_caller_deterministic_off_first_call_ms=second_ms,
+                          full_float32_after_both_callers_ms=residual_ms)), flush=True)
 
 
 def probe_kernel_lines(probe_lines, probe_launches, errs):
@@ -1242,13 +1591,17 @@ def main():
     kernels += probe_entries
     other_times.update(probe_times)
     phase_held_out(dev)
+    train_launches = phase_train(dev, smi)
+    phase_train_kernels(dev)
+    phase_train_cpu(dev)
     phase_network_precision(dev, server, smi)
     for k in kernels:
         name = k["name"]
         k["launches_by_path"] = {"serve": launches[name],
                                  "eval_oracle": oracle["launches"][name],
                                  "evaluate": eval_launches[name],
-                                 "probe": probe_launches[name]}
+                                 "probe": probe_launches[name],
+                                 "train": train_launches[name]}
         k["at_other_shapes"] = [dict(what=what, **{f: v[f] for f in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by")})
             for what, v in other_times.items() if v.get("kernel") == name]
@@ -1265,4 +1618,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--deterministic-caller-order-check"]:
+        deterministic_caller_order_check()
+    else:
+        main()

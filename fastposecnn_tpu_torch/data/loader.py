@@ -47,25 +47,27 @@ def pad_batch(batch: dict, batch_size: int) -> Tuple[dict, int]:
 
 
 def upcast_image(image: torch.Tensor) -> torch.Tensor:
-    """uint8 NHWC wire image -> ImageNet-normalized float32 NCHW; a float
-    NCHW image passes through (assumed normalized by its producer)."""
+    """NHWC wire image -> float32 NCHW: uint8 is ImageNet-normalized, a
+    float image keeps its values (assumed normalized by its producer)."""
     if image.dtype == torch.uint8:
         mean = torch.as_tensor(IMAGENET_MEAN, device=image.device)
         std = torch.as_tensor(IMAGENET_STD, device=image.device)
-        img = (image.float() / 255.0 - mean) / std
-        return img.permute(0, 3, 1, 2).contiguous()
-    return image
+        image = (image.float() / 255.0 - mean) / std
+    return image.permute(0, 3, 1, 2).contiguous()
 
 
 def upcast_batch(batch: Dict, device) -> Dict:
-    """A padded numpy batch -> tensors on `device`: image as `upcast_image`,
-    mask int32, GT instance masks float32, every other GT field as it is."""
+    """A numpy batch -> tensors on `device`: image as `upcast_image`, mask
+    int32, GT instance masks float32, every other GT field as it is, and
+    `sample_valid` where the batch has it (`pad_batch` adds it)."""
     agg = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
            for k, v in batch["agg"].items()}
     agg["instance_masks"] = agg["instance_masks"].float()
-    return {
+    out = {
         "image": upcast_image(torch.from_numpy(batch["image"]).to(device)),
         "mask": torch.from_numpy(batch["mask"]).to(device).to(torch.int32),
         "agg": agg,
-        "sample_valid": torch.from_numpy(batch["sample_valid"]).to(device),
     }
+    if "sample_valid" in batch:
+        out["sample_valid"] = torch.from_numpy(batch["sample_valid"]).to(device)
+    return out

@@ -7,7 +7,7 @@ caller asks for it (`device="cpu"`), as the CPU tests do.
 `full_float32()` is the precision the entry points compute in: float32
 throughout, as the JAX package does, with TF32 off for cuDNN convolutions
 (which PyTorch runs in TF32 by default) and for CUDA matrix products, and
-cuDNN's algorithms chosen by timing among its deterministic ones.
+cuDNN's algorithms chosen by timing.
 """
 
 from __future__ import annotations
@@ -32,6 +32,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def body_deterministic(caller_cudnn_tf32: bool, caller_deterministic: bool) -> bool:
+    """The `cudnn.deterministic` flag `full_float32()` sets, given the
+    caller's: True after a caller whose cuDNN TF32 is on (its algorithm
+    cache entries differ from the body's by the TF32 flag), else the
+    opposite of the caller's own flag."""
+    return True if caller_cudnn_tf32 else not caller_deterministic
+
+
 @contextlib.contextmanager
 def full_float32() -> Iterator[None]:
     """Run the body in full float32: TF32 off for cuDNN convolutions and for
@@ -42,11 +50,18 @@ def full_float32() -> Iterator[None]:
     to 8 that runs about 100 times slower than the one its own timing finds,
     so the body has cuDNN time its algorithms for each new shape
     (`cudnn.benchmark`). PyTorch caches the algorithm of a convolution under
-    its parameters and flags, but not under `cudnn.benchmark`: an algorithm
-    the heuristics gave to a float32 call outside this context would be
-    reused here untimed. So the body also asks for deterministic algorithms
-    (`cudnn.deterministic`), a flag the cache does key: calls made with
-    torch's defaults share no entry with the body's, whichever ran first.
+    its shapes, its memory format and two flags, TF32 and
+    `cudnn.deterministic`, but not under `cudnn.benchmark`: an algorithm
+    that the heuristics gave to a float32 call outside this context would be
+    reused here untimed, at the heuristics' speed (the order checks of
+    chip_smoke.py's network_precision phase measure it). So the body sets `cudnn.deterministic` to a value under
+    which the caller's own calls made no entry: after a caller with TF32 on,
+    True; after a caller in float32, the opposite of the caller's flag
+    (`body_deterministic`). A caller in float32 that asked for deterministic
+    algorithms thus gets cuDNN's fastest ones in the body, which for the
+    backward passes of training may be nondeterministic. What this cannot
+    separate: a process in which callers with both values of the flag ran
+    the same shapes in float32 under the heuristics before the body did.
     The caller's four flags are restored on exit, also on an exception."""
     backends = torch.backends
     saved = (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
@@ -54,7 +69,7 @@ def full_float32() -> Iterator[None]:
     backends.cudnn.allow_tf32 = False
     backends.cuda.matmul.allow_tf32 = False
     backends.cudnn.benchmark = True
-    backends.cudnn.deterministic = True
+    backends.cudnn.deterministic = body_deterministic(saved[0], saved[3])
     try:
         yield
     finally:

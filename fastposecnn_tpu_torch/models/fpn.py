@@ -4,13 +4,19 @@
 1x1 laterals to 256 channels, nearest x2 top-down adds, per-level
 segmentation blocks (conv3x3 + GroupNorm(32, eps 1e-5) + ReLU, with bilinear
 x2 upsamples, align_corners=True) down to 128 channels at 1/4 resolution,
-'add' merge, Dropout2d; the head is a 1x1 conv plus a x4 bilinear upsample
-(align_corners=True).
+'add' merge, channel dropout; the head is a 1x1 conv plus a x4 bilinear
+upsample (align_corners=True).
+
+The dropout is flax's `nn.Dropout(broadcast_dims=(1, 2))` of the JAX
+decoder (`models/fpn.py:148-152`): in training a [B, C, 1, 1] keep mask
+selects whole channels, scaled by 1/(1-p). The mask can be injected (so
+that a step can replay another framework's draws); otherwise it is drawn
+from the generator given, or from torch's default one.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -72,16 +78,33 @@ class FPNDecoder(nn.Module):
             SegmentationBlock(pyramid_channels, segmentation_channels, n)
             for n in (3, 2, 1, 0)
         ])
-        self.dropout = nn.Dropout2d(p=dropout)
+        self.dropout = dropout
+        self.channels = segmentation_channels
 
-    def forward(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, features: Sequence[torch.Tensor],
+                keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c2, c3, c4, c5 = features[-4:]
         p5 = self.p5(c5)
         p4 = self.p4(p5, c4)
         p3 = self.p3(p4, c3)
         p2 = self.p2(p3, c2)
         maps = [blk(p) for blk, p in zip(self.seg_blocks, (p5, p4, p3, p2))]
-        return self.dropout(maps[0] + maps[1] + maps[2] + maps[3])
+        x = maps[0] + maps[1] + maps[2] + maps[3]
+        if not self.training or self.dropout == 0.0:
+            return x
+        if keep is None:
+            keep = draw_keep(x.shape[0], self.channels, self.dropout,
+                             x.device, generator)
+        return torch.where(keep, x / (1.0 - self.dropout), torch.zeros_like(x))
+
+
+def draw_keep(batch: int, channels: int, rate: float, device,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """A channel keep mask [B, C, 1, 1] (bool): each channel kept with
+    probability 1 - rate, as flax's `random.bernoulli`."""
+    u = torch.rand((batch, channels, 1, 1), generator=generator, device=device)
+    return u < 1.0 - rate
 
 
 class SegmentationHead(nn.Sequential):

@@ -14,17 +14,23 @@ in channels [c*k, (c+1)*k)):
   xy         [B, 2(C-1), H, W]   translation channels 3k and 3k+1
   z          [B, C-1, H, W]      translation channel 3k+2 (log-depth)
   scales     [B, 3(C-1), H, W]
+
+In training mode each decoder drops whole channels (`fpn.FPNDecoder`);
+`forward` takes the four decoders' keep masks as `dropout_keep` (keyed
+mask, rotation, translation, scales), or draws them from `generator`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
-from fastposecnn_tpu_torch.models.fpn import FPNDecoder, SegmentationHead
+from fastposecnn_tpu_torch.models.fpn import FPNDecoder, SegmentationHead, draw_keep
 from fastposecnn_tpu_torch.models.resnet import ResNetEncoder
+
+DECODERS = ("mask", "rotation", "translation", "scales")
 
 
 class PoseRegressorNet(nn.Module):
@@ -54,17 +60,34 @@ class PoseRegressorNet(nn.Module):
             "z_index", torch.tensor([i for i in range(n) if i % 3 == 2]),
             persistent=False)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def draw_dropout_keep(self, batch: int, device,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Dict[str, torch.Tensor]:
+        """One train-mode keep mask [B, C, 1, 1] per decoder."""
+        decoders = {name: getattr(self, f"{name}_decoder") for name in DECODERS}
+        return {name: draw_keep(batch, dec.channels, dec.dropout, device, generator)
+                for name, dec in decoders.items()}
+
+    def forward(self, x: torch.Tensor,
+                dropout_keep: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         if x.shape[-2] % 32 or x.shape[-1] % 32:
             raise ValueError(
                 "input spatial dims must be multiples of 32 for the FPN "
                 f"top-down pathway, got {x.shape[-2]}x{x.shape[-1]}"
             )
         feats = self.encoder(x)
-        mask = self.segmentation_head(self.mask_decoder(feats))
-        quat = self.rotation_head(self.rotation_decoder(feats))
-        xyz = self.translation_head(self.translation_decoder(feats))
-        scales = self.scales_head(self.scales_decoder(feats))
+        keep = dropout_keep or {}
+
+        def decode(name):
+            return getattr(self, f"{name}_decoder")(feats, keep.get(name),
+                                                    generator)
+
+        mask = self.segmentation_head(decode("mask"))
+        quat = self.rotation_head(decode("rotation"))
+        xyz = self.translation_head(decode("translation"))
+        scales = self.scales_head(decode("scales"))
         return {
             "mask": mask,
             "quaternion": quat,

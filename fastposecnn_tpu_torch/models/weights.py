@@ -8,8 +8,12 @@ Conventions converted (the inverse of the JAX package's
   flax BatchNorm/GroupNorm scale/bias ->  torch weight/bias
   flax batch_stats mean/var           ->  torch running_mean/running_var
 The JAX stem kernel is (7, 7, 4, 64) with a zero alpha input channel; its
-input channels are sliced to 3. Flax BatchNorm momentum 0.9 is torch
-momentum 0.1 (the torch default), which matters only for training.
+input channels are sliced to 3. `models.resnet.BatchNorm` updates the
+running statistics as flax does in training.
+
+`from_jax_train_state` carries a whole JAX `TrainState` across: the same
+layout rules, applied to every params-shaped tree of the optimizer state
+(RAdam's moments, Lookahead's slow weights).
 """
 
 from __future__ import annotations
@@ -187,3 +191,29 @@ def load_any_checkpoint(path, hp):
     hp = merge_arch_from_any(path, hp)
     flat, _ = load_npz_checkpoint(path)
     return from_jax_params(flat), hp
+
+
+def from_jax_train_state(state):
+    """A JAX `train/task.py::TrainState` (its arrays as numpy or JAX arrays,
+    read through `np.asarray`; no JAX import) -> (state_dict of
+    `PoseRegressorNet`, `train.optim.OptState`, step, skipped_updates).
+
+    The JAX optimizer state is `(freeze multipliers,
+    InjectHyperparamsState(count, hyperparams={'lr_scale'}, inner_state))`,
+    whose inner state holds a `ScaleByAdamState` (count, mu, nu) and a
+    `LookaheadState` (slow, step); they are found by their fields."""
+    from fastposecnn_tpu_torch.train.optim import OptState
+
+    def params_like(tree):
+        return from_jax_params({"params": tree})
+
+    sd = from_jax_params({"params": state.params, "batch_stats": state.batch_stats})
+    inject = state.opt_state[1]
+    adam = next(s for s in inject.inner_state if hasattr(s, "mu"))
+    la = next(s for s in inject.inner_state if hasattr(s, "slow"))
+    opt = OptState(mu=params_like(adam.mu), nu=params_like(adam.nu),
+                   count=int(np.asarray(adam.count)), slow=params_like(la.slow),
+                   lookahead_step=int(np.asarray(la.step)),
+                   lr_scale=float(np.asarray(inject.hyperparams["lr_scale"])),
+                   hyper_count=int(np.asarray(inject.count)))
+    return sd, opt, int(np.asarray(state.step)), int(np.asarray(state.skipped_updates))

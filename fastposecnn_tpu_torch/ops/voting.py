@@ -12,6 +12,12 @@ generators.
 The adaptive loop runs on the host: before each round it reads one flag
 from the device (all active slots confident), so a batch costs at most
 `max_iter` + 1 host syncs.
+
+Voting passes no gradient, as in the JAX package (`ops/voting.py:529-535`,
+:573, :660-661): the sampled points and directions, the refinements' inlier
+weights and directions and the dense refinement's whole field are detached,
+so a loss on the voted centres trains nothing. The field is trained by the
+dense supervision of `losses.dense_supervision` instead.
 """
 
 from __future__ import annotations
@@ -327,6 +333,7 @@ def refine_centers(win: torch.Tensor, pts: torch.Tensor, dirs: torch.Tensor,
     """Normal-form least squares over the winner's inliers among the
     sampled points: n = (d.y, -d.x), b = n . p, centre = (A^T A)^-1 A^T b.
     win [M, 2], pts/dirs [M, P, 2], pvalid [M, P] -> [M, 2]."""
+    dirs = dirs.detach()
     w = _inlier_mask(win, pts, dirs, pvalid, inlier_thresh)
     nrm = torch.stack([dirs[..., 1], -dirs[..., 0]], dim=-1)
     bvec = (nrm * pts).sum(-1)
@@ -340,7 +347,9 @@ def refine_centers_dense(win: torch.Tensor, masks: torch.Tensor,
                          field: torch.Tensor, inlier_thresh: float) -> torch.Tensor:
     """Least squares over the winner's inliers among ALL in-mask pixels:
     win [B, N, 2], masks [B, N, H, W], field [B, H, W, 2] -> [B, N, 2]. The
-    five normal-equation sums are one [N, HW] x [HW, 5] product per image."""
+    five normal-equation sums are one [N, HW] x [HW, 5] product per image.
+    No gradient reaches `field`."""
+    field = field.detach()
     b, n, h, w = masks.shape
     hw = h * w
     dev = masks.device
@@ -504,6 +513,9 @@ def hough_vote(agg: dict, max_points: int = 1024, round_hyp_num: int = 128,
             agg["cc_labels"], agg["cc_roots"],
         )
     m = b * n
+    # Voting is gradient-opaque: the single-shot and adaptive rounds see
+    # detached points and directions (the JAX `s_pts`/`s_dirs`).
+    pts, dirs = pts.detach(), dirs.detach()
     slots = (pts.reshape(m, max_points, 2), dirs.reshape(m, max_points, 2),
              npts.reshape(m), agg["valid"].reshape(m))
     inner_refine = "sampled" if refine == "sampled" else "none"

@@ -1,6 +1,10 @@
 """Post-network stages: logits -> categorical -> instances -> voted centres
 -> R/T (counterpart of the JAX package's `pipeline.py:24-144`).
 
+The stage gates (`perform_aggregation`, `perform_hough_voting`,
+`perform_rt_calculation`) are the JAX package's: under the MASK_TRAINING
+preset nothing runs after class compression, and neither kernel launches.
+
 `ransac` voting is ported with both samplers (`bbox`, `cdf`), both RANSAC
 schedules (single shot, and the adaptive loop of the EVALUATING preset) and
 both refinements (`dense`, `sampled`). `hv_implementation="soft"` is not
@@ -22,6 +26,9 @@ from fastposecnn_tpu_torch.ops.voting import VoteDraws, hough_vote
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
+    perform_aggregation: bool = True
+    perform_hough_voting: bool = True
+    perform_rt_calculation: bool = True
     max_instances: int = 16
     max_points: int = 1024
     hv_num_hypotheses: int = 128
@@ -89,13 +96,19 @@ def run_pipeline(logits: Dict[str, torch.Tensor], config: PipelineConfig,
                  cpu_generator: Optional[torch.Generator] = None
                  ) -> Dict[str, Any]:
     """Compose the post-network stages. Returns {'logits', 'categorical',
-    'aggregated'}; 'aggregated' carries the CC kernel's unread error flag
-    as 'cc_error' (None on the CPU) for the caller to read once at its end."""
+    'aggregated'}; 'aggregated' is None when aggregation is off (the
+    MASK_TRAINING preset), and otherwise carries the CC kernel's unread
+    error flag as 'cc_error' (None on the CPU) for the caller to read once
+    at its end."""
     config.check_ported()
     categorical = stage_class_compress(logits)
-    aggregated = stage_aggregate(categorical, config)
-    aggregated = stage_hough_voting(aggregated, config, draws, generator,
-                                    cpu_generator)
-    aggregated = stage_rt_calculation(aggregated, inv_intrinsics)
+    aggregated = None
+    if config.perform_aggregation:
+        aggregated = stage_aggregate(categorical, config)
+        if config.perform_hough_voting:
+            aggregated = stage_hough_voting(aggregated, config, draws,
+                                            generator, cpu_generator)
+            if config.perform_rt_calculation:
+                aggregated = stage_rt_calculation(aggregated, inv_intrinsics)
     return {"logits": logits, "categorical": categorical,
             "aggregated": aggregated}

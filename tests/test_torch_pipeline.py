@@ -108,6 +108,8 @@ def test_port_sources_import_no_jax():
     files = _port_sources()
     assert len(files) > 15
     assert REPO / "fastposecnn_tpu_torch" / "probes" / "vote_variants.py" in files
+    for module in ("losses.py", "train/optim.py", "train/task.py"):
+        assert REPO / "fastposecnn_tpu_torch" / module in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -136,6 +138,8 @@ for info in pkgutil.walk_packages(fastposecnn_tpu_torch.__path__, 'fastposecnn_t
 bad = [m for m in sys.modules if m.split('.')[0] in FORBIDDEN]
 assert not bad, bad
 assert 'fastposecnn_tpu_torch.probes.vote_variants' in sys.modules
+assert 'fastposecnn_tpu_torch.train.task' in sys.modules
+assert 'fastposecnn_tpu_torch.losses' in sys.modules
 print('ok')
 """
 
