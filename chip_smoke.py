@@ -16,10 +16,13 @@ of BASELINE.md with the trained FULL_c5 checkpoint, and trains at full
 width: 8 MASK_TRAINING and 6 HEAD_TRAINING steps (the paths: the kernels'
 launch counters are reset just before each and read just after), holds a
 HEAD_TRAINING step through the kernels against one through their plain
-versions and a reduced-size step on the card against the CPU,
-measures what TF32 would change in the network (and checks that the entry
-points' float32 does not reuse a convolution algorithm that cuDNN's
-heuristics chose outside them), checks that a served frame enqueues with
+versions and a reduced-size step on the card against the CPU, runs the
+train CLI for 2 full-width HEAD_TRAINING epochs on augmented synthetic
+scenes (checkpoints, a full resume and a weights-only resume, the native
+augmentation against numpy on the card's host), measures what TF32
+would change in the network (and checks that the entry points' float32
+does not reuse a convolution algorithm that cuDNN's heuristics chose
+outside them), checks that a served frame enqueues with
 no host sync until it reads the CC kernel's error flag at its end, and
 times the kernels at the served and the evaluated shapes (K1 beside its
 floor: its launches with empty kernels), their plain versions, the
@@ -1390,6 +1393,274 @@ def phase_train_cpu(dev, h=96, w=128):
          max_log_diff=log_err, max_grad_relative_l2=grad_rel, max_param_diff=param_err)
 
 
+# -----------------------------------------------------------------------------
+# The train CLI
+
+
+class CliProbe:
+    """Instruments the train CLI's path while it runs: the metrics handed to
+    the run logger, each train step's CUDA-event time, and the train state
+    at the first step of the run (what a resume loaded)."""
+
+    def __init__(self):
+        from fastposecnn_tpu_torch.train import loop
+        from fastposecnn_tpu_torch.utils import tb
+
+        self.loop, self.tb = loop, tb
+        self.logged, self.step_ms, self.eval_steps, self.first_state = [], [], 0, None
+
+    def __enter__(self):
+        loop, probe = self.loop, self
+        self.originals = (loop.make_train_step, loop.make_eval_step,
+                          self.tb.RunLogger.log_metrics)
+
+        def make_train_step(*args):
+            step = probe.originals[0](*args)
+
+            def timed(state, batch, seed=0):
+                if probe.first_state is None:
+                    probe.first_state = snapshot_state(state)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                out = step(state, batch, seed=seed)
+                end.record()
+                end.synchronize()
+                probe.step_ms.append(start.elapsed_time(end))
+                return out
+            return timed
+
+        def make_eval_step(*args):
+            step = probe.originals[1](*args)
+
+            def counted(*a, **kw):
+                probe.eval_steps += 1
+                return step(*a, **kw)
+            return counted
+
+        def log_metrics(logger, mode, metrics, step, accumulate=True):
+            probe.logged.append((mode, {k: float(v) for k, v in metrics.items()}, step))
+            return probe.originals[2](logger, mode, metrics, step, accumulate)
+
+        loop.make_train_step, loop.make_eval_step = make_train_step, make_eval_step
+        self.tb.RunLogger.log_metrics = log_metrics
+        return self
+
+    def __exit__(self, *exc):
+        (self.loop.make_train_step, self.loop.make_eval_step,
+         self.tb.RunLogger.log_metrics) = self.originals
+
+
+def snapshot_state(state):
+    """A host copy of a TrainState: state_dict, OptState fields, counts."""
+    o = state.opt_state
+    cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}  # noqa: E731
+    return dict(state_dict=cpu(state.net.state_dict()), mu=cpu(o.mu), nu=cpu(o.nu),
+                slow=cpu(o.slow), params=cpu(dict(state.net.named_parameters())),
+                scalars=(o.count, o.lookahead_step, o.lr_scale, o.hyper_count),
+                step=state.step, skipped=state.skipped_updates)
+
+
+def run_train_cli(argv):
+    """`cli.train.main(argv)` with its printed lines kept off the smoke's
+    output (run.log holds them); returns (state, run dir, probe)."""
+    from fastposecnn_tpu_torch.cli import train as train_cli
+
+    with CliProbe() as probe, contextlib.redirect_stdout(io.StringIO()):
+        state, run_dir = train_cli.main(argv)
+    torch.cuda.synchronize()
+    return state, run_dir, probe
+
+
+def phase_train_cli(dev, smi, scenes=12, epochs=2):
+    """The train CLI (`cli.train.main`, called as a function) on the card at
+    full width: HEAD_TRAINING, 480x640, 7 CAMERA classes, batch 3,
+    `--synthetic 12` (train: 12 scenes with the train augmentation through
+    the native operators; valid: 3 scenes), 4 loader threads, 2 epochs, no
+    TensorBoard, seeded random weights. Requires: the run dir with
+    HPARAM.json, 2 epoch lines, checkpoints/{best,periodic,last}; every
+    logged loss finite, no skipped update; K1 once a train or eval step and
+    K2 once a vote round (launch counters reset just before this run and
+    read just after). Then a third epoch from checkpoints/last, whose state
+    right after the load is bit-equal to the saved file and whose step count
+    goes on; and a weights-only resume from an npz snapshot the port wrote
+    (slow weights equal to the loaded parameters, RAdam's count 0). Checks
+    that `augment_sample` through the native operators is bit-equal to its
+    numpy path on 480x640 samples of the card's host, and prints, without
+    gating: ms a sample on each path, images/s of each epoch, the loader
+    alone in batches/s, the median train step and whether
+    torch.utils.tensorboard imports."""
+    import copy
+    import os
+    import re
+
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch import constants, kernels
+    from fastposecnn_tpu_torch.cli import train as train_cli
+    from fastposecnn_tpu_torch.data import augment as A
+    from fastposecnn_tpu_torch.data.loader import PrefetchLoader
+    from fastposecnn_tpu_torch.data.nocs import SyntheticNOCSSource
+    from fastposecnn_tpu_torch.data.synthetic import SceneConfig
+    from fastposecnn_tpu_torch.native import augment_lib
+    from fastposecnn_tpu_torch.ops import aggregation, voting
+    from fastposecnn_tpu_torch.train import checkpoint as ckpt
+
+    phase_t0 = t0 = time.perf_counter()
+    augment_lib.load_library()
+    native_build_s = time.perf_counter() - t0
+
+    # ---- the native augmentation against numpy, on this host ----
+    sample = SyntheticNOCSSource(1, 5, SceneConfig(height=H, width=W, num_classes=7,
+                                                   max_instances=16))[0]
+    K = constants.scaled_intrinsics("CAMERA", H, W)
+    aug_ms = {"native": [], "numpy": []}
+    warped = 0
+    for seed in range(6):
+        out = {}
+        for path in ("numpy", "native"):
+            s = copy.deepcopy(sample)
+            t0 = time.perf_counter()
+            out[path] = A.augment_sample(s, np.random.default_rng(seed), intrinsics=K,
+                                         native=path == "native")
+            aug_ms[path].append((time.perf_counter() - t0) * 1e3)
+        a, b = out["native"], out["numpy"]
+        fields = [("image", a["image"], b["image"]), ("mask", a["mask"], b["mask"]),
+                  ("depth", a["depth"], b["depth"])] + [
+            (f"agg/{k}", a["agg"][k], b["agg"][k]) for k in b["agg"]]
+        for name, x, y in fields:
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"native augmentation differs from numpy: {name}, "
+                                     f"seed {seed}")
+        warped += not np.array_equal(b["mask"], sample["mask"])
+    if not 0 < warped < 6:
+        raise AssertionError(f"{warped} of 6 seeds took the perspective warp")
+
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        tensorboard = "imports"
+    except ImportError as e:
+        tensorboard = f"does not import: {e}"
+
+    common = ["--preset", "HEAD_TRAINING", "--synthetic", str(scenes),
+              "--IMAGE_HEIGHT", str(H), "--IMAGE_WIDTH", str(W), "--BATCH_SIZE", "3",
+              "--SELECTED_CLASSES", *C.HParams().SELECTED_CLASSES, "--NUM_WORKERS", "4",
+              "--no_tb", "--device", dev.type]
+    with tempfile.TemporaryDirectory(prefix="fpcnn_train_cli_") as tmp:
+        old_logs = os.environ.get("LOGS")
+        os.environ["LOGS"] = tmp
+        try:
+            # ---- the loader alone, one epoch of augmented batches ----
+            args = train_cli.build_parser().parse_args(common)
+            hp = C.apply_cli_overrides(C.head_training(), args)
+            train_ds, _ = train_cli.synthetic_sources(hp, args)
+            loader = PrefetchLoader(train_ds, hp.BATCH_SIZE, num_workers=hp.NUM_WORKERS)
+            t0 = time.perf_counter()
+            n_batches = sum(1 for b in loader if b is not None)
+            loader_s = time.perf_counter() - t0
+
+            # ---- the main path: 2 epochs ----
+            labels, counts = [], []
+            orig_cc = recorded(aggregation, "label_components", labels)
+            orig_vote = recorded(voting, "vote_counts", counts)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            try:
+                state, run_dir, probe = run_train_cli(
+                    ["-e", "SMOKE", "--epochs", str(epochs), *common])
+            finally:
+                aggregation.label_components, voting.vote_counts = orig_cc, orig_vote
+            launches = kernels.launch_counts()
+            run_log = (run_dir / "run.log").read_text()
+            epoch_lines = re.findall(r"epoch \d+: val_loss=.*", run_log)
+            steps = len(probe.step_ms)
+            if not (run_dir / "HPARAM.json").is_file() or len(epoch_lines) != epochs:
+                raise AssertionError(f"run dir {run_dir}: HPARAM.json or the {epochs} epoch "
+                                     f"lines missing: {epoch_lines}")
+            kinds = {k: ckpt.latest_step(run_dir / "checkpoints" / k)
+                     for k in ("best", "periodic", "last")}
+            if None in kinds.values() or kinds["last"] != state.step:
+                raise AssertionError(f"checkpoints {kinds}, step {state.step}")
+            losses = [v for _, m, _ in probe.logged for k, v in m.items() if "loss" in k]
+            if not losses or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"a logged loss is not finite: {losses}")
+            if state.skipped_updates or any("skipped=0 " not in ln for ln in epoch_lines):
+                raise AssertionError(f"skipped updates: {epoch_lines}")
+            if steps != epochs * -(-scenes // 3) or state.step != steps:
+                raise AssertionError(f"{steps} train steps, state step {state.step}")
+            if (launches["cc_label"] != len(labels) or len(labels) != steps + probe.eval_steps
+                    or launches["vote_count"] != len(counts) or len(counts) < steps
+                    or launches["vote_expanded_mm"] or launches["vote_expanded_bcast"]):
+                raise AssertionError(f"launches {launches}: {len(labels)} CC calls, "
+                                     f"{len(counts)} vote rounds, {steps} train and "
+                                     f"{probe.eval_steps} eval steps")
+            del labels, counts
+            throughput = [m["throughput/images_per_s"] for _, m, _ in probe.logged
+                          if "throughput/images_per_s" in m]
+
+            # ---- full resume: a third epoch from checkpoints/last ----
+            last = run_dir / "checkpoints" / "last"
+            saved = torch.load(last / f"step_{kinds['last']:08d}.pt", map_location="cpu",
+                               weights_only=True)
+            resumed, run2, probe2 = run_train_cli(
+                ["-e", "SMOKE_RESUME", "--epochs", "1", "--resume", str(last), *common])
+            got = probe2.first_state
+            o = saved["opt_state"]
+            same = (all(torch.equal(got["state_dict"][k], v)
+                        for k, v in saved["state_dict"].items())
+                    and sorted(got["state_dict"]) == sorted(saved["state_dict"])
+                    and all(torch.equal(got[f][k], v) for f in ("mu", "nu", "slow")
+                            for k, v in o[f].items())
+                    and got["scalars"] == (o["count"], o["lookahead_step"], o["lr_scale"],
+                                           o["hyper_count"])
+                    and (got["step"], got["skipped"]) == (saved["step"],
+                                                          saved["skipped_updates"]))
+            if not same or resumed.step != saved["step"] + len(probe2.step_ms):
+                raise AssertionError(f"full resume: state after the load equal {same}, "
+                                     f"steps {saved['step']} -> {resumed.step}")
+
+            # ---- weights-only resume from an npz the port wrote ----
+            snap = pathlib.Path(tmp) / "snapshot.npz"
+            ckpt.save_npz_snapshot(snap, resumed, C.HParams.load(run2 / "HPARAM.json"))
+            want = {n: p.detach().cpu().half().float()
+                    for n, p in resumed.net.named_parameters()}
+            _, _, probe3 = run_train_cli(
+                ["-e", "SMOKE_NPZ", "--epochs", "1", "--TRAIN_SIZE", "3",
+                 "--resume", str(snap), *common])
+            got = probe3.first_state
+            weights_only = dict(
+                params_equal_snapshot=all(torch.equal(got["params"][n], v)
+                                          for n, v in want.items()),
+                slow_equal_params=all(torch.equal(got["slow"][n], p)
+                                      for n, p in got["params"].items()),
+                radam_count=got["scalars"][0], step=got["step"])
+            if not (weights_only["params_equal_snapshot"] and weights_only["slow_equal_params"]
+                    and weights_only["radam_count"] == 0 and weights_only["step"] == 0):
+                raise AssertionError(f"weights-only resume: {weights_only}")
+        finally:
+            if old_logs is None:
+                os.environ.pop("LOGS", None)
+            else:
+                os.environ["LOGS"] = old_logs
+
+    emit("train_cli", card=smi, hw=[H, W], batch=3, classes=7, scenes=scenes,
+         epochs=epochs, train_steps=steps, eval_steps=probe.eval_steps,
+         epoch_lines=epoch_lines, checkpoints=kinds, launches=launches,
+         launches_per_step=dict(cc_label=launches["cc_label"] / (steps + probe.eval_steps),
+                                vote_count=launches["vote_count"] / (steps + probe.eval_steps)),
+         images_per_s_by_epoch=throughput,
+         step_ms_median=statistics.median(probe.step_ms[1:]), step_ms=probe.step_ms,
+         loader_alone=dict(batches=n_batches, seconds=loader_s,
+                           batches_per_s=n_batches / loader_s, workers=4, backend="thread"),
+         native_augment=dict(build_s=native_build_s, bit_equal=True, seeds=6, warped=warped,
+                             ms_per_sample_native=statistics.median(aug_ms["native"]),
+                             ms_per_sample_numpy=statistics.median(aug_ms["numpy"])),
+         full_resume=dict(from_step=saved["step"], to_step=resumed.step,
+                          state_bit_equal_after_load=same),
+         weights_only_resume=weights_only, tensorboard=tensorboard,
+         seconds=time.perf_counter() - phase_t0)
+    return launches
+
+
 def phase_network_precision(dev, server, smi, pairs=10):
     """What computing in float32 costs and buys in the network alone at
     480x640: the served network (seeded random weights, random images) and
@@ -1594,6 +1865,7 @@ def main():
     train_launches = phase_train(dev, smi)
     phase_train_kernels(dev)
     phase_train_cpu(dev)
+    train_cli_launches = phase_train_cli(dev, smi)
     phase_network_precision(dev, server, smi)
     for k in kernels:
         name = k["name"]
@@ -1601,7 +1873,8 @@ def main():
                                  "eval_oracle": oracle["launches"][name],
                                  "evaluate": eval_launches[name],
                                  "probe": probe_launches[name],
-                                 "train": train_launches[name]}
+                                 "train": train_launches[name],
+                                 "train_cli": train_cli_launches[name]}
         k["at_other_shapes"] = [dict(what=what, **{f: v[f] for f in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by")})
             for what, v in other_times.items() if v.get("kernel") == name]

@@ -2,7 +2,8 @@
 `cli/evaluate.py`), on CUDA unless `--device cpu` is given.
 
     python -m fastposecnn_tpu_torch.cli.evaluate --synthetic 8 --output out \
-        [--CHECKPOINT weights.npz] [--device cpu] [--HV_NUM_OF_HYPOTHESES ...]
+        [--CHECKPOINT weights.npz|ref.ckpt|checkpoints/best] [--device cpu] \
+        [--HV_NUM_OF_HYPOTHESES ...]
 
 Phase A (skipped when `raw_errors_<VALID_SIZE>.npz` exists in --output):
 the validation scenes go through the network and the post-network stages
@@ -250,22 +251,23 @@ def scene_source(hp, args):
 
 
 def build_network(hp, device):
-    """The network on `device`, with the weights of `hp.CHECKPOINT` or
-    random ones from seed 0. Returns (net, hp with the checkpoint's arch
-    fields)."""
+    """The network on `device`, with the weights of `hp.CHECKPOINT` (an npz
+    snapshot, a reference torch checkpoint or a full checkpoint of the
+    port's trainer, `train.checkpoint.load_weights`) or random ones from
+    seed 0. Returns (net, hp with the checkpoint's arch fields)."""
     from fastposecnn_tpu_torch.models import PoseRegressorNet
-    from fastposecnn_tpu_torch.models.weights import init_random_, load_any_checkpoint
+    from fastposecnn_tpu_torch.models.weights import init_random_
+    from fastposecnn_tpu_torch.train.checkpoint import load_weights, merge_arch_from_any
 
-    state = None
     if hp.CHECKPOINT:
-        state, hp = load_any_checkpoint(hp.CHECKPOINT, hp)
+        hp = merge_arch_from_any(hp.CHECKPOINT, hp)
     if hp.ENCODER != "resnet18":
         raise NotImplementedError(f"ENCODER={hp.ENCODER!r}: only resnet18 is ported")
     net = PoseRegressorNet(num_classes=hp.num_classes)
-    if state is None:
-        init_random_(net, 0)
+    if hp.CHECKPOINT:
+        hp = load_weights(net, hp.CHECKPOINT, hp)
     else:
-        net.load_state_dict(state)
+        init_random_(net, 0)
     return net.eval().to(device), hp
 
 
@@ -281,7 +283,7 @@ def main(argv=None) -> dict:
     hp = C.apply_cli_overrides(C.evaluating(), args)
     device = resolve_device(args.device)
     if hp.CHECKPOINT:
-        from fastposecnn_tpu_torch.models.weights import merge_arch_from_any
+        from fastposecnn_tpu_torch.train.checkpoint import merge_arch_from_any
 
         hp = merge_arch_from_any(hp.CHECKPOINT, hp)
 

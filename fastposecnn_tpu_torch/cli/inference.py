@@ -3,7 +3,7 @@ per-stage ms / fps report of the reference's six timers (counterpart of the
 JAX package's `cli/inference.py`), on CUDA unless `--device cpu` is given.
 
     python -m fastposecnn_tpu_torch.cli.inference --synthetic 8 --stage_timing \
-        [--CHECKPOINT weights.npz] [--device cpu]
+        [--CHECKPOINT weights.npz|ref.ckpt|checkpoints/best] [--device cpu]
 
 `forward` times the network and every post-network stage of one frame
 (the INFERENCE preset's single 4096-hypothesis vote); `--stage_timing` runs
@@ -56,7 +56,7 @@ def main(argv=None) -> dict:
     hp = C.apply_cli_overrides(C.inference(), args)
     device = resolve_device(args.device)
     if hp.CHECKPOINT:
-        from fastposecnn_tpu_torch.models.weights import merge_arch_from_any
+        from fastposecnn_tpu_torch.train.checkpoint import merge_arch_from_any
 
         hp = merge_arch_from_any(hp.CHECKPOINT, hp)
     from fastposecnn_tpu_torch.data.loader import iterate_batches, pad_batch, upcast_batch

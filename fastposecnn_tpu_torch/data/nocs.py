@@ -9,6 +9,15 @@ uint16 depth, the meta record with its float64 RTs, then the JAX reader's
 steps (distractors and unselected classes dropped, GT from
 `extract_instance_gt`, z <= 0 samples rejected as None). Reading NOCS PNG
 folders from disk is not ported.
+
+With `augmentation` ('train' or 'valid') a sample ends as the JAX
+`NOCSDataset.__getitem__` ends (`data/nocs.py:288-314` there): its draws
+come from `default_rng((aug_seed, epoch, i))`, 'train' applies the full
+compose (`augment.augment_sample` with the scaled intrinsics), 'valid'
+`augment.augment_validation`, and the image is requantized to uint8 with
+`rint`. `epoch` is set by `loader.PrefetchLoader` before an epoch's
+workers start. `native_augment` picks the augmentation's native operators
+(the default) or its numpy ones.
 """
 
 from __future__ import annotations
@@ -86,8 +95,17 @@ class SyntheticNOCSSource:
                  scene_cfg: Optional[SceneConfig] = None,
                  dataset_name: str = "CAMERA",
                  selected_classes: Optional[Sequence[str]] = None,
-                 max_size: Optional[int] = None, max_instances: int = 16):
+                 max_size: Optional[int] = None, max_instances: int = 16,
+                 augmentation: Optional[str] = None, aug_seed: int = 0,
+                 aug_cfg=None, native_augment: bool = True):
+        if augmentation not in (None, "train", "valid"):
+            raise ValueError(f"unknown augmentation mode {augmentation!r}")
         cfg = scene_cfg or SceneConfig()
+        self.augmentation = augmentation
+        self.aug_seed = aug_seed
+        self.aug_cfg = aug_cfg
+        self.native_augment = native_augment
+        self.epoch = 0
         self.dataset_name = dataset_name
         self.spec = constants.dataset_spec(dataset_name, selected_classes)
         all_classes = list(constants.CLASSES[dataset_name])
@@ -164,13 +182,29 @@ class SyntheticNOCSSource:
 
         if (agg["z"][agg["valid"]] <= 0).any():
             return None
-        return {
+        sample = {
             "path": self.names[i],
             "image": rec["color"],
             "mask": class_mask.astype(np.uint8),
             "depth": depth.astype(np.float32),
             "agg": agg,
         }
+        if self.augmentation:
+            sample = self._augment(sample, i, K)
+        return sample
+
+    def _augment(self, sample: dict, i: int, K: np.ndarray) -> dict:
+        from fastposecnn_tpu_torch.data import augment as A
+
+        rng = np.random.default_rng((self.aug_seed, self.epoch, i))
+        if self.augmentation == "train":
+            sample = A.augment_sample(sample, rng, self.aug_cfg, intrinsics=K,
+                                      native=self.native_augment)
+        else:
+            img = sample["image"].astype(np.float32) / 255.0
+            sample["image"] = A.augment_validation(img, rng, self.aug_cfg)
+        sample["image"] = np.clip(np.rint(sample["image"] * 255.0), 0, 255).astype(np.uint8)
+        return sample
 
 
 def collate(samples: Sequence[Optional[dict]]) -> Optional[Dict]:

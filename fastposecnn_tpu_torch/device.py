@@ -25,7 +25,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available: fastposecnn_tpu_torch entry points run on "
-            "the GPU by default; pass device='cpu' to run on the CPU"
+            "the GPU by default; pass device='cpu' (--device cpu on a command "
+            "line) to run on the CPU"
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")

@@ -15,6 +15,11 @@ in channels [c*k, (c+1)*k)):
   z          [B, C-1, H, W]      translation channel 3k+2 (log-depth)
   scales     [B, 3(C-1), H, W]
 
+`z_bias_init` and `scales_bias_init` are the constant biases that
+`models.weights.init_random_` gives the translation head's log-z channels
+(j % 3 == 2) and every scales channel (`HEAD_Z_BIAS_INIT`,
+`HEAD_SCALES_BIAS_INIT`); every other bias starts at 0.
+
 In training mode each decoder drops whole channels (`fpn.FPNDecoder`);
 `forward` takes the four decoders' keep masks as `dropout_keep` (keyed
 mask, rotation, translation, scales), or draws them from `generator`.
@@ -37,10 +42,13 @@ class PoseRegressorNet(nn.Module):
     """ResNet18 encoder, FPN decoders of 256 pyramid and 128 segmentation
     channels (dropout 0.2), heads upsampling x4: the reference's sizes."""
 
-    def __init__(self, num_classes: int = 7):
+    def __init__(self, num_classes: int = 7, z_bias_init: float = 0.0,
+                 scales_bias_init: float = 0.0):
         super().__init__()
         c = num_classes
         self.num_classes = c
+        self.z_bias_init = z_bias_init
+        self.scales_bias_init = scales_bias_init
         self.encoder = ResNetEncoder()
         ec = self.encoder.out_channels
         self.mask_decoder = FPNDecoder(ec)

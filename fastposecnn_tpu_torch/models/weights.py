@@ -1,6 +1,8 @@
 """Weights for the port's network: conversion of the JAX package's
 `{params, batch_stats}` trees (and its npz checkpoints) into this package's
-state_dict, and seeded random weights.
+state_dict and back (`to_jax_flat`), the reference's own torch state_dicts
+(`load_state_dict_file`, `convert_reference_state_dict`), and seeded random
+weights.
 
 Conventions converted (the inverse of the JAX package's
 `models/weights.py`):
@@ -14,13 +16,19 @@ running statistics as flax does in training.
 `from_jax_train_state` carries a whole JAX `TrainState` across: the same
 layout rules, applied to every params-shaped tree of the optimizer state
 (RAdam's moments, Lookahead's slow weights).
+
+The reference's checkpoints (torchvision ResNet + smp FPN, the layout of
+FPC/lib/pose_regressor.py:575-743) already use this package's module
+names: after the Lightning `model.` prefix is stripped, the key map is the
+identity, and `convert_reference_state_dict` checks that every key is
+present, none is extra and every shape agrees.
 """
 
 from __future__ import annotations
 
 import json
-import pathlib
 import math
+import pickle
 import re
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -130,11 +138,116 @@ def load_npz_checkpoint(path) -> Tuple[Dict[str, np.ndarray], Optional[dict]]:
     return flat, hp
 
 
+def _flax_module(module: str) -> str:
+    """torch module path -> flax module path, the inverse of
+    `_torch_module`, e.g. 'encoder.layer2.0.downsample.0' ->
+    'encoder/layer2_0/downsample_conv'."""
+    parts = module.split(".")
+    if parts[0] == "encoder":
+        out, rest = ["encoder"], parts[1:]
+        while rest:
+            p = rest.pop(0)
+            if re.fullmatch(r"layer\d", p):
+                out.append(f"{p}_{rest.pop(0)}")
+            elif p == "downsample":
+                out.append({"0": "downsample_conv", "1": "downsample_bn"}[rest.pop(0)])
+            else:
+                out.append(p)
+        return "/".join(out)
+    if parts[0].endswith("_decoder"):
+        rest = parts[1:]
+        if rest[0] in ("p4", "p3", "p2") or rest == ["p5"]:
+            return f"{parts[0]}/{rest[0]}"
+        if rest[0] == "seg_blocks":  # seg_blocks.i.block.j.block.{0,1}
+            kind = {"0": "conv", "1": "gn"}[rest[5]]
+            return f"{parts[0]}/seg{rest[1]}/block{rest[3]}/{kind}"
+    heads = {v: k for k, v in _HEADS.items()}
+    if parts[0] in heads and parts[1:] == ["0"]:
+        return f"{heads[parts[0]]}_head/conv"
+    raise KeyError(f"no flax module for torch module '{module}'")
+
+
+def to_jax_flat(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """state_dict of `PoseRegressorNet` -> flat JAX arrays keyed
+    'params/<module>/<leaf>' and 'batch_stats/<module>/<leaf>' (float32),
+    the layout of the JAX package's npz snapshots: conv weights as kernels
+    [kh, kw, in, out], the stem's with its zero alpha input channel
+    (7, 7, 4, 64); `num_batches_tracked` has no JAX counterpart."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, t in state_dict.items():
+        module, _, leaf = key.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        path = _flax_module(module)
+        a = t.detach().cpu().float().numpy()
+        if leaf == "weight" and a.ndim == 4:
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+            if module == "encoder.conv1":
+                a = np.pad(a, ((0, 0), (0, 0), (0, 1), (0, 0)))
+            flat[f"params/{path}/kernel"] = a
+        elif leaf in ("running_mean", "running_var"):
+            flat[f"batch_stats/{path}/{leaf[len('running_'):]}"] = a
+        elif leaf in ("weight", "bias"):
+            flat[f"params/{path}/{'scale' if leaf == 'weight' else 'bias'}"] = a
+        else:
+            raise KeyError(f"unknown state_dict entry '{key}'")
+    return flat
+
+
+def load_torch_file(path):
+    """`torch.load` on the CPU, tensors only; a Lightning checkpoint whose
+    `hyper_parameters` hold other objects (an `argparse.Namespace`) needs
+    the full unpickler, which runs only on that refusal (load only
+    checkpoints you trust: unpickling can run code)."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_state_dict_file(path) -> Dict[str, torch.Tensor]:
+    """The tensors of a reference torch checkpoint (a plain state_dict, or a
+    Lightning `.ckpt` with one under 'state_dict'), with the `model.` prefix
+    of the Lightning task module stripped (FPC pose_regressor.py:530)."""
+    obj = load_torch_file(path)
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    if isinstance(obj.get("state_dict"), dict):
+        obj = obj["state_dict"]
+    return {(k[len("model."):] if k.startswith("model.") else k): v
+            for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def convert_reference_state_dict(state_dict: Mapping[str, torch.Tensor],
+                                 net: nn.Module) -> Dict[str, torch.Tensor]:
+    """A reference state_dict (prefix stripped) as a state_dict of `net`, in
+    its dtypes. Raises KeyError on a missing or an extra key and ValueError
+    on a shape that differs."""
+    want = net.state_dict()
+    missing = sorted(set(want) - set(state_dict))
+    extra = sorted(set(state_dict) - set(want))
+    if missing or extra:
+        raise KeyError(f"reference checkpoint does not fit PoseRegressorNet: "
+                       f"missing {missing[:8]}{'...' if len(missing) > 8 else ''}, "
+                       f"extra {extra[:8]}{'...' if len(extra) > 8 else ''}")
+    out = {}
+    for k, t in want.items():
+        got = state_dict[k]
+        if tuple(got.shape) != tuple(t.shape):
+            raise ValueError(f"shape mismatch at {k}: checkpoint {tuple(got.shape)}, "
+                             f"network {tuple(t.shape)}")
+        out[k] = got.detach().to(t.dtype).clone()
+    return out
+
+
 @torch.no_grad()
 def init_random_(net: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from a seeded generator, in place, with the JAX
     package's init families: convolutions of the encoder lecun-normal,
-    decoders he-uniform, heads xavier-uniform; biases zero; norms unit."""
+    decoders he-uniform, heads xavier-uniform; biases zero but the head
+    biases the network was built with (`z_bias_init` on the translation
+    head's channels j % 3 == 2, `scales_bias_init` on the scales head's);
+    norms unit."""
     gen = torch.Generator().manual_seed(seed)
     for name, mod in net.named_modules():
         if isinstance(mod, nn.Conv2d):
@@ -155,42 +268,13 @@ def init_random_(net: nn.Module, seed: int) -> nn.Module:
             if isinstance(mod, nn.BatchNorm2d):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
+    z_bias = getattr(net, "z_bias_init", 0.0)
+    if z_bias:
+        net.translation_head[0].bias[2::3] = z_bias
+    scales_bias = getattr(net, "scales_bias_init", 0.0)
+    if scales_bias:
+        net.scales_head[0].bias.fill_(scales_bias)
     return net
-
-
-def _npz_hparams(path) -> Optional[dict]:
-    """The decoded `__hparams_json__` of an npz snapshot (None if absent),
-    read without loading the weights."""
-    p = pathlib.Path(path)
-    if not (p.is_file() and p.suffix == ".npz"):
-        raise NotImplementedError(
-            f"{path}: only npz weight snapshots load in this package (orbax "
-            "directories and Lightning .ckpt files are not ported)")
-    with np.load(p, allow_pickle=False) as z:
-        if "__hparams_json__" not in z.files:
-            return None
-        return json.loads(str(z["__hparams_json__"]))
-
-
-def merge_arch_from_any(path, hp):
-    """The architecture-defining hparams (`config.ARCH_FIELDS`) of an npz
-    snapshot merged into `hp`: call before building the dataset and the
-    network (counterpart of `train/checkpoint.py::merge_arch_from_any`)."""
-    from fastposecnn_tpu_torch import config as C
-
-    ckpt_hp = _npz_hparams(path)
-    if ckpt_hp is None:
-        return hp
-    return C.merge_from_checkpoint(hp, C.HParams.from_json(json.dumps(ckpt_hp)))
-
-
-def load_any_checkpoint(path, hp):
-    """Weights of an npz snapshot as a state_dict of `PoseRegressorNet`, and
-    `hp` with the snapshot's architecture fields (the npz half of
-    `train/checkpoint.py::load_any_checkpoint`)."""
-    hp = merge_arch_from_any(path, hp)
-    flat, _ = load_npz_checkpoint(path)
-    return from_jax_params(flat), hp
 
 
 def from_jax_train_state(state):

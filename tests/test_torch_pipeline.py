@@ -108,7 +108,9 @@ def test_port_sources_import_no_jax():
     files = _port_sources()
     assert len(files) > 15
     assert REPO / "fastposecnn_tpu_torch" / "probes" / "vote_variants.py" in files
-    for module in ("losses.py", "train/optim.py", "train/task.py"):
+    for module in ("losses.py", "train/optim.py", "train/task.py", "train/checkpoint.py",
+                   "train/loop.py", "cli/train.py", "data/augment.py",
+                   "native/augment_lib.py", "utils/tb.py"):
         assert REPO / "fastposecnn_tpu_torch" / module in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -140,6 +142,9 @@ assert not bad, bad
 assert 'fastposecnn_tpu_torch.probes.vote_variants' in sys.modules
 assert 'fastposecnn_tpu_torch.train.task' in sys.modules
 assert 'fastposecnn_tpu_torch.losses' in sys.modules
+for name in ('train.checkpoint', 'train.loop', 'cli.train', 'data.augment',
+             'native.augment_lib', 'utils.tb'):
+    assert 'fastposecnn_tpu_torch.' + name in sys.modules, name
 print('ok')
 """
 
