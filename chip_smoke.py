@@ -18,8 +18,12 @@ launch counters are reset just before each and read just after), holds a
 HEAD_TRAINING step through the kernels against one through their plain
 versions and a reduced-size step on the card against the CPU, runs the
 train CLI for 2 full-width HEAD_TRAINING epochs on augmented synthetic
-scenes (checkpoints, a full resume and a weights-only resume, the native
-augmentation against numpy on the card's host), measures what TF32
+scenes written as NOCS folders (checkpoints, a full resume and a
+weights-only resume, the native augmentation against numpy on the card's
+host), runs its device-resident staged trainer for 3 full-width epochs
+that restage onto fresh scene banks of a rotating pool (verified uploads,
+checkpoint flushes, a batch gathered on the card against the host
+collate, the PNG decode native and numpy), measures what TF32
 would change in the network (and checks that the entry points' float32
 does not reuse a convolution algorithm that cuDNN's heuristics chose
 outside them), checks that a served frame enqueues with
@@ -50,6 +54,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -994,14 +999,17 @@ def phase_vote_scan(dev, smi):
     """K2 with few active slots, after the served frame is timed (so that
     line runs after the same work as before these lines were added): the
     main-path shape with 4 of 16 slots active, as a scene with a handful of
-    objects gives it, and the evaluation shape with the first 0, 1, 4, 15,
-    32 and 64 of 64 slots active (its fixed costs against the cells' work)."""
+    objects gives it, the train path's shape (a HEAD_TRAINING round at batch
+    3: 48 slots, 128 hypotheses, 1024 points) with all 48 active, and the
+    evaluation shape with the first 0, 1, 4, 15, 32 and 64 of 64 slots active
+    (its fixed costs against the cells' work)."""
     from fastposecnn_tpu_torch.kernels.build import load_library
 
     lib = load_library()
     out = {}
     for name, (m, h, n_active) in (
             ("vote_count_served_shape_4_active", (16, 4096, 4)),
+            ("vote_count_train_shape_48_active", (48, 128, 48)),
             *((f"vote_count_eval_shape_{n}_active", (64, 1000, n))
               for n in (0, 1, 4, 15, 32, 64))):
         hyps, pts, dirs, pv, act = vote_inputs(dev, m, h, 1024, n_active,
@@ -1397,17 +1405,56 @@ def phase_train_cpu(dev, h=96, w=128):
 # The train CLI
 
 
+class SyncCounter:
+    """Counts the host syncs made on the calling thread while it is entered
+    (a read of a device value, a copy that waits for the card): it turns on
+    `torch.cuda.set_sync_debug_mode("warn")` and counts PyTorch's warning
+    for each. Another thread's syncs (a checkpoint flush) are not counted."""
+
+    MESSAGE = r".*synchronizing CUDA operation.*"
+
+    def __init__(self):
+        self.count, self.thread = 0, threading.get_ident()
+
+    def __enter__(self):
+        self.catch = warnings.catch_warnings()
+        self.catch.__enter__()
+        warnings.filterwarnings("always", message=self.MESSAGE)
+        show = warnings.showwarning
+
+        def counting(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing CUDA operation" not in str(message):
+                return show(message, category, filename, lineno, file, line)
+            if threading.get_ident() == self.thread:
+                self.count += 1
+            return None
+
+        warnings.showwarning = counting
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self.catch.__exit__(*exc)
+
+
 class CliProbe:
     """Instruments the train CLI's path while it runs: the metrics handed to
     the run logger, each train step's CUDA-event time, and the train state
-    at the first step of the run (what a resume loaded)."""
+    at the first step of the run (what a resume loaded). `trainer` is the
+    module whose step makers it wraps (`train.loop`, or `train.staged`);
+    with `syncs` (a `SyncCounter`) it also counts each step's host syncs."""
 
-    def __init__(self):
+    def __init__(self, trainer=None, syncs=None):
         from fastposecnn_tpu_torch.train import loop
         from fastposecnn_tpu_torch.utils import tb
 
-        self.loop, self.tb = loop, tb
+        self.loop, self.tb, self.syncs = trainer or loop, tb, syncs
         self.logged, self.step_ms, self.eval_steps, self.first_state = [], [], 0, None
+        # with `syncs`: the count at each train step's start, and the syncs
+        # inside each train and each eval step
+        self.step_starts, self.step_syncs, self.eval_syncs = [], [], []
+        self.eval_rounds = []  # vote rounds of each eval step
 
     def __enter__(self):
         loop, probe = self.loop, self
@@ -1422,9 +1469,13 @@ class CliProbe:
                     probe.first_state = snapshot_state(state)
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
                     enable_timing=True)
+                before = probe.syncs.count if probe.syncs else 0
+                probe.step_starts.append(before)
                 start.record()
                 out = step(state, batch, seed=seed)
                 end.record()
+                if probe.syncs:
+                    probe.step_syncs.append(probe.syncs.count - before)
                 end.synchronize()
                 probe.step_ms.append(start.elapsed_time(end))
                 return out
@@ -1435,7 +1486,14 @@ class CliProbe:
 
             def counted(*a, **kw):
                 probe.eval_steps += 1
-                return step(*a, **kw)
+                before = probe.syncs.count if probe.syncs else 0
+                out = step(*a, **kw)
+                if probe.syncs:
+                    probe.eval_syncs.append(probe.syncs.count - before)
+                agg = out[2]["aggregated"] if out[2] is not None else None
+                if agg is not None and "vote_rounds" in agg:
+                    probe.eval_rounds.append(int(agg["vote_rounds"]))
+                return out
             return counted
 
         def log_metrics(logger, mode, metrics, step, accumulate=True):
@@ -1461,12 +1519,12 @@ def snapshot_state(state):
                 step=state.step, skipped=state.skipped_updates)
 
 
-def run_train_cli(argv):
+def run_train_cli(argv, trainer=None, syncs=None):
     """`cli.train.main(argv)` with its printed lines kept off the smoke's
     output (run.log holds them); returns (state, run dir, probe)."""
     from fastposecnn_tpu_torch.cli import train as train_cli
 
-    with CliProbe() as probe, contextlib.redirect_stdout(io.StringIO()):
+    with CliProbe(trainer, syncs) as probe, contextlib.redirect_stdout(io.StringIO()):
         state, run_dir = train_cli.main(argv)
     torch.cuda.synchronize()
     return state, run_dir, probe
@@ -1476,7 +1534,8 @@ def phase_train_cli(dev, smi, scenes=12, epochs=2):
     """The train CLI (`cli.train.main`, called as a function) on the card at
     full width: HEAD_TRAINING, 480x640, 7 CAMERA classes, batch 3,
     `--synthetic 12` (train: 12 scenes with the train augmentation through
-    the native operators; valid: 3 scenes), 4 loader threads, 2 epochs, no
+    the native operators; valid: 3 scenes; written as NOCS folders under a
+    temporary `--bank_pool_dir` and read back), 4 loader threads, 2 epochs, no
     TensorBoard, seeded random weights. Requires: the run dir with
     HPARAM.json, 2 epoch lines, checkpoints/{best,periodic,last}; every
     logged loss finite, no skipped update; K1 once a train or eval step and
@@ -1541,18 +1600,22 @@ def phase_train_cli(dev, smi, scenes=12, epochs=2):
     except ImportError as e:
         tensorboard = f"does not import: {e}"
 
-    common = ["--preset", "HEAD_TRAINING", "--synthetic", str(scenes),
-              "--IMAGE_HEIGHT", str(H), "--IMAGE_WIDTH", str(W), "--BATCH_SIZE", "3",
-              "--SELECTED_CLASSES", *C.HParams().SELECTED_CLASSES, "--NUM_WORKERS", "4",
-              "--no_tb", "--device", dev.type]
     with tempfile.TemporaryDirectory(prefix="fpcnn_train_cli_") as tmp:
+        common = ["--preset", "HEAD_TRAINING", "--synthetic", str(scenes),
+                  "--IMAGE_HEIGHT", str(H), "--IMAGE_WIDTH", str(W), "--BATCH_SIZE", "3",
+                  "--SELECTED_CLASSES", *C.HParams().SELECTED_CLASSES, "--NUM_WORKERS", "4",
+                  "--bank_pool_dir", f"{tmp}/banks", "--no_tb", "--device", dev.type]
         old_logs = os.environ.get("LOGS")
         os.environ["LOGS"] = tmp
         try:
-            # ---- the loader alone, one epoch of augmented batches ----
+            # ---- the loader alone, one epoch of augmented batches (the banks'
+            # render is reused by the runs below) ----
             args = train_cli.build_parser().parse_args(common)
             hp = C.apply_cli_overrides(C.head_training(), args)
-            train_ds, _ = train_cli.synthetic_sources(hp, args)
+            t0 = time.perf_counter()
+            _, train_dir, valid_dir = train_cli.synthetic_banks(hp, args)
+            render_s = time.perf_counter() - t0
+            train_ds, _ = train_cli.datasets(hp, args, train_dir, valid_dir)
             loader = PrefetchLoader(train_ds, hp.BATCH_SIZE, num_workers=hp.NUM_WORKERS)
             t0 = time.perf_counter()
             n_batches = sum(1 for b in loader if b is not None)
@@ -1651,6 +1714,7 @@ def phase_train_cli(dev, smi, scenes=12, epochs=2):
          step_ms_median=statistics.median(probe.step_ms[1:]), step_ms=probe.step_ms,
          loader_alone=dict(batches=n_batches, seconds=loader_s,
                            batches_per_s=n_batches / loader_s, workers=4, backend="thread"),
+         render_banks_s=render_s,
          native_augment=dict(build_s=native_build_s, bit_equal=True, seeds=6, warped=warped,
                              ms_per_sample_native=statistics.median(aug_ms["native"]),
                              ms_per_sample_numpy=statistics.median(aug_ms["numpy"])),
@@ -1658,6 +1722,257 @@ def phase_train_cli(dev, smi, scenes=12, epochs=2):
                           state_bit_equal_after_load=same),
          weights_only_resume=weights_only, tensorboard=tensorboard,
          seconds=time.perf_counter() - phase_t0)
+    return launches
+
+
+def phase_train_staged(dev, smi, scenes=24, epochs=3):
+    """The staged trainer through the train CLI (`cli.train.main`, called as
+    a function) on the card at full width: HEAD_TRAINING, 480x640, 7 CAMERA
+    classes, batch 3, 16 GT slots, 1024 points and 128 hypotheses a round
+    (adaptive), seeded random weights, no TensorBoard, `--synthetic 24
+    --stage_on_device --restage_every 1 --epochs 3 --bank_pool_dir <tmp>
+    --snapshot_npz <tmp>/snap.npz`, 4 staging workers. `bank_2` is rendered
+    into the pool first by the writer's command line, so the first restage
+    moves onto a bank the run did not start from. Requires: the staged
+    trainer's line in run.log; every upload verified with no retry; restage
+    lines at epochs 1 and 2, one of them read from bank_2; a pending best
+    flushed before a restage; checkpoints/{best,periodic,last} and the npz snapshot,
+    which loads; every logged loss finite; K1 once a train or eval step and
+    K2 once a vote round (counters reset just before the run and read just
+    after, K2's against the rounds the train and eval steps report); no
+    renderer or staging process left. Then one batch gathered
+    on the card (and upcast there) bit-equal to the host collate of the same
+    samples (upcast on the card). Prints, without gating: the staged bytes,
+    the staging and restage seconds, images/s an epoch, the median step,
+    host syncs in each train and eval step and those of an epoch outside
+    its steps (from one epoch's first train step to the next's: the gather,
+    the fetch, the checkpoint clones, the restage upload), ms to decode a
+    480x640 PNG of the bank (filter 0 rows) and to unfilter 480x640 RGB
+    Paeth rows, each with the native and the numpy unfilter."""
+    import logging
+    import multiprocessing
+    import os
+    import re
+
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch import kernels
+    from fastposecnn_tpu_torch.data import bank_pool, png
+    from fastposecnn_tpu_torch.data.loader import upcast_batch
+    from fastposecnn_tpu_torch.data.nocs import NOCSDataset, collate
+    from fastposecnn_tpu_torch.models import PoseRegressorNet
+    from fastposecnn_tpu_torch.ops import aggregation, voting
+    from fastposecnn_tpu_torch.train import checkpoint as ckpt
+    from fastposecnn_tpu_torch.train import staged
+
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="fpcnn_train_staged_") as tmp:
+        pool_dir, snap = pathlib.Path(tmp) / "pool", pathlib.Path(tmp) / "snap.npz"
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "fastposecnn_tpu_torch.data.nocs_writer",
+                        "--out", str(pool_dir / "bank_2"), "--num", str(scenes), "--seed", "2",
+                        "--height", str(H), "--width", str(W), "--num_classes", "7",
+                        "--max_instances", "16"],
+                       check=True, timeout=300, cwd=pathlib.Path(__file__).resolve().parent,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        writer_cli_s = time.perf_counter() - t0
+
+        # ---- PNG decode of a 480x640 color file, native and numpy ----
+        color = sorted((pool_dir / "bank_2").rglob("*_color.png"))[0]
+        decode_ms = {}
+        for native in (True, False):
+            times = []
+            for _ in range(5 if native else 2):
+                t0 = time.perf_counter()
+                img = png.decode_png(color, native=native, rgb=True)
+                times.append((time.perf_counter() - t0) * 1e3)
+            decode_ms["native" if native else "numpy"] = statistics.median(times)
+        if img.shape != (H, W, 3) or not np.array_equal(
+                img, png.decode_png(color, native=True, rgb=True)):
+            raise AssertionError("native and numpy PNG decode differ")
+        # The writer's rows are all filter 0; files from other encoders carry
+        # Paeth rows, where the unfilter is sequential: time it alone there.
+        raw = np.random.default_rng(0).integers(0, 256, (H, W * 3 + 1), dtype=np.uint8)
+        raw[:, 0] = 4
+        raw = raw.reshape(-1)
+        unfilter_ms = {}
+        for name, fn in (("native", png.unfilter_native), ("numpy", png.unfilter_numpy)):
+            t0 = time.perf_counter()
+            rows = fn(raw, H, W * 3, 3)
+            unfilter_ms[name] = (time.perf_counter() - t0) * 1e3
+            if name == "native":
+                paeth_native = rows
+        if not np.array_equal(rows, paeth_native):
+            raise AssertionError("native and numpy unfilter differ on Paeth rows")
+
+        # ---- the main path ----
+        rotations, renders, uploads, stagings = [], [], [], []
+        originals = (bank_pool.BankPool.rotate, bank_pool.BankPool.launch,
+                     staged.verified_device_put, staged.stage_dataset)
+
+        def rotate(pool):
+            rotations.append(originals[0](pool))
+            return rotations[-1]
+
+        def launch(pool):
+            originals[1](pool)
+            renders.append(pool.proc)
+
+        def put(host_tree, what, *a, **kw):
+            t = time.perf_counter()
+            out = originals[2](host_tree, what, *a, **kw)
+            uploads.append((what, staged.tree_nbytes(host_tree),
+                            host_tree["image"].shape[0], time.perf_counter() - t))
+            return out
+
+        def stage(ds, *a, **kw):
+            t = time.perf_counter()
+            out = originals[3](ds, *a, **kw)
+            stagings.append(time.perf_counter() - t)
+            return out
+
+        calls = {"label_components": 0, "vote_counts": 0}
+
+        def counting(module, name):
+            original = getattr(module, name)
+
+            def wrapper(*args, **kwargs):
+                calls[name] += 1
+                return original(*args, **kwargs)
+            setattr(module, name, wrapper)
+            return original
+
+        bank_pool.BankPool.rotate, bank_pool.BankPool.launch = rotate, launch
+        staged.verified_device_put, staged.stage_dataset = put, stage
+        orig_cc = counting(aggregation, "label_components")
+        orig_vote = counting(voting, "vote_counts")
+        old_logs = os.environ.get("LOGS")
+        os.environ["LOGS"] = tmp
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with SyncCounter() as syncs:
+                state, run_dir, probe = run_train_cli(
+                    ["-e", "SMOKE_STAGED", "--preset", "HEAD_TRAINING",
+                     "--synthetic", str(scenes), "--IMAGE_HEIGHT", str(H),
+                     "--IMAGE_WIDTH", str(W), "--BATCH_SIZE", "3",
+                     "--SELECTED_CLASSES", *C.HParams().SELECTED_CLASSES,
+                     "--NUM_WORKERS", "4", "--no_tb", "--device", dev.type,
+                     "--stage_on_device", "--restage_every", "1", "--epochs", str(epochs),
+                     "--bank_pool_dir", str(pool_dir), "--snapshot_npz", str(snap)],
+                    trainer=staged, syncs=syncs)
+            launches = kernels.launch_counts()
+        finally:
+            (bank_pool.BankPool.rotate, bank_pool.BankPool.launch,
+             staged.verified_device_put, staged.stage_dataset) = originals
+            aggregation.label_components, voting.vote_counts = orig_cc, orig_vote
+            if old_logs is None:
+                os.environ.pop("LOGS", None)
+            else:
+                os.environ["LOGS"] = old_logs
+
+        run_log = (run_dir / "run.log").read_text()
+        epoch_lines = re.findall(r"epoch \d+: val_loss=.*", run_log)
+        restaged = [int(e) for e in re.findall(r"restaged \d+ train samples \(\d+ generated\) "
+                                               r"at epoch (\d+)", run_log)]
+        flushed = [int(e) for e in re.findall(
+            r"flushed best checkpoint before restage at epoch (\d+)", run_log)]
+        verified = len(re.findall(r"staged (?:train|valid) upload verified: ", run_log))
+        if "staged (device-resident) trainer" not in run_log or len(epoch_lines) != epochs:
+            raise AssertionError(f"run.log of {run_dir}: {epoch_lines}")
+        if (verified != len(uploads) or "FAILED checksum" in run_log
+                or "verified on retry" in run_log):
+            raise AssertionError(f"{verified} verified uploads of {len(uploads)}")
+        if restaged != list(range(1, epochs)) or pool_dir / "bank_2" not in rotations:
+            raise AssertionError(f"restaged at {restaged}, banks read {rotations}")
+        if not flushed:
+            raise AssertionError("no flush before a restage")
+        kinds = {k: ckpt.latest_step(run_dir / "checkpoints" / k)
+                 for k in ("best", "periodic", "last")}
+        if None in kinds.values() or kinds["last"] != state.step:
+            raise AssertionError(f"checkpoints {kinds}, step {state.step}")
+        hp = ckpt.merge_arch_from_any(snap, C.head_training())
+        net = PoseRegressorNet(hp.num_classes)
+        ckpt.load_weights(net, snap, hp)
+        if not all(torch.isfinite(v).all() for v in net.state_dict().values()
+                   if v.is_floating_point()):
+            raise AssertionError("the npz snapshot holds a non-finite weight")
+        losses = [v for _, m, _ in probe.logged for k, v in m.items() if "loss" in k]
+        if not losses or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"a logged loss is not finite: {losses}")
+        steps = len(probe.step_ms)
+        if steps != epochs * (scenes // 3) or state.step != steps:
+            raise AssertionError(f"{steps} train steps, state step {state.step}")
+        rounds = [int(m["pose/vote_rounds"]) for mode, m, _ in probe.logged
+                  if mode == "train" and "pose/vote_rounds" in m]
+        if (launches["cc_label"] != calls["label_components"]
+                or calls["label_components"] != steps + probe.eval_steps
+                or launches["vote_count"] != calls["vote_counts"]
+                or calls["vote_counts"] != sum(rounds) + sum(probe.eval_rounds)
+                or len(rounds) != steps or len(probe.eval_rounds) != probe.eval_steps
+                or launches["vote_expanded_mm"] or launches["vote_expanded_bcast"]):
+            raise AssertionError(f"launches {launches}: calls {calls}, train rounds {rounds}, "
+                                 f"eval rounds {probe.eval_rounds}, {steps} train and "
+                                 f"{probe.eval_steps} eval steps")
+        left = [p.pid for p in renders if p.poll() is None]
+        left += [p.pid for p in multiprocessing.active_children()]
+        if left:
+            raise AssertionError(f"processes left after the run: {left}")
+
+        # ---- a batch gathered on the card against the host collate ----
+        ds = NOCSDataset(pool_dir / "bank_2", max_instances=16, augmentation="train")
+        ds.epoch = 1
+        host = staged.stage_dataset(ds)
+        dev_tree = staged.verified_device_put(host, "check", logging.getLogger("chip_smoke"),
+                                              dev)
+        n = host["image"].shape[0]
+        idx = np.array([n - 1, 0, n // 2], np.int64)
+        ones = torch.ones((3,), dtype=torch.float32, device=dev)
+        gathered = staged._gather_batch(dev_tree, torch.from_numpy(idx).to(dev), ones)
+        want = collate([ds[int(i)] for i in idx])
+        want["sample_valid"] = np.ones((3,), np.float32)
+        pairs = [("image", gathered["image"], want["image"]),
+                 ("mask", gathered["mask"], want["mask"])] + [
+            (f"agg/{k}", gathered["agg"][k], want["agg"][k]) for k in want["agg"]]
+        up_got, up_want = upcast_batch(gathered, dev), upcast_batch(want, dev)
+        pairs += [("upcast image", up_got["image"], up_want["image"]),
+                  ("upcast mask", up_got["mask"], up_want["mask"]),
+                  ("upcast instance_masks", up_got["agg"]["instance_masks"],
+                   up_want["agg"]["instance_masks"])]
+        for name, got, ref in pairs:
+            ref = torch.as_tensor(np.asarray(ref)) if not isinstance(ref, torch.Tensor) else ref
+            if got.dtype != ref.dtype or not torch.equal(got.cpu(), ref.cpu()):
+                raise AssertionError(f"gathered batch differs from the host collate: {name}")
+
+    throughput = [m["throughput/images_per_s"] for _, m, _ in probe.logged
+                  if "throughput/images_per_s" in m]
+    train_uploads = [u for u in uploads if u[0] == "train"]
+    per_epoch = steps // epochs
+    evals_per_epoch = probe.eval_steps // epochs
+    between = [probe.step_starts[(e + 1) * per_epoch] - probe.step_starts[e * per_epoch]
+               - sum(probe.step_syncs[e * per_epoch:(e + 1) * per_epoch])
+               - sum(probe.eval_syncs[e * evals_per_epoch:(e + 1) * evals_per_epoch])
+               for e in range(epochs - 1)]
+    emit("train_staged", card=smi, hw=[H, W], batch=3, classes=7, scenes=scenes,
+         epochs=epochs, train_steps=steps, eval_steps=probe.eval_steps,
+         epoch_lines=[ln[:120] for ln in epoch_lines], restaged_at=restaged,
+         flushed_before_restage_at=flushed, checkpoints=kinds,
+         banks_read=[p.name for p in rotations], renders_started=len(renders),
+         launches=launches, vote_rounds_train=rounds, vote_rounds_eval=probe.eval_rounds,
+         launches_per_step=dict(cc_label=launches["cc_label"] / (steps + probe.eval_steps),
+                                vote_count=launches["vote_count"] / (steps + probe.eval_steps)),
+         staged_bytes=dict(train=train_uploads[0][1],
+                           per_sample=train_uploads[0][1] / train_uploads[0][2],
+                           valid=sum(u[1] for u in uploads if u[0] == "valid")),
+         staging_s=stagings, upload_verified_s=[u[3] for u in uploads],
+         images_per_s_by_epoch=throughput,
+         step_ms_median=statistics.median(probe.step_ms[1:]), step_ms=probe.step_ms,
+         host_syncs=dict(in_train_steps=probe.step_syncs,
+                         per_train_step_median=statistics.median(probe.step_syncs),
+                         in_eval_steps=probe.eval_syncs,
+                         epoch_outside_steps=between, whole_run=syncs.count),
+         png_decode_ms_480x640=decode_ms, png_unfilter_ms_480x640_paeth=unfilter_ms,
+         writer_cli_s=writer_cli_s,
+         gathered_batch_bit_equal=True, seconds=time.perf_counter() - phase_t0)
     return launches
 
 
@@ -1866,6 +2181,7 @@ def main():
     phase_train_kernels(dev)
     phase_train_cpu(dev)
     train_cli_launches = phase_train_cli(dev, smi)
+    staged_launches = phase_train_staged(dev, smi)
     phase_network_precision(dev, server, smi)
     for k in kernels:
         name = k["name"]
@@ -1874,7 +2190,8 @@ def main():
                                  "evaluate": eval_launches[name],
                                  "probe": probe_launches[name],
                                  "train": train_launches[name],
-                                 "train_cli": train_cli_launches[name]}
+                                 "train_cli": train_cli_launches[name],
+                                 "train_staged": staged_launches[name]}
         k["at_other_shapes"] = [dict(what=what, **{f: v[f] for f in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by")})
             for what, v in other_times.items() if v.get("kernel") == name]

@@ -1,8 +1,8 @@
 """Two-phase evaluation CLI (counterpart of the JAX package's
 `cli/evaluate.py`), on CUDA unless `--device cpu` is given.
 
-    python -m fastposecnn_tpu_torch.cli.evaluate --synthetic 8 --output out \
-        [--CHECKPOINT weights.npz|ref.ckpt|checkpoints/best] [--device cpu] \
+    python -m fastposecnn_tpu_torch.cli.evaluate (--synthetic 8 | --valid_dir D) \
+        --output out [--CHECKPOINT weights.npz|ref.ckpt|checkpoints/best] [--device cpu] \
         [--HV_NUM_OF_HYPOTHESES ...]
 
 Phase A (skipped when `raw_errors_<VALID_SIZE>.npz` exists in --output):
@@ -15,8 +15,9 @@ and the table APs at {IoU .25/.5, 5/10 deg, 5/10 cm} with the joint
 5deg5cm / 10deg5cm / 10deg10cm APs, written as CSV (one file per metric,
 classes as columns) and JSON with numpy alone.
 
-The scenes are the in-memory synthetic source (`--synthetic N`, the same
-scenes as the JAX CLI's for the same seed); reading NOCS folders from disk,
+The scenes are a NOCS folder (`--valid_dir`, read by `data.nocs.NOCSDataset`
+as the JAX CLI reads it) or the in-memory synthetic source (`--synthetic N`,
+the same scenes as the JAX CLI writes and reads back for the same seed);
 the AP plot and the xlsx table, `--draw` and data-parallel evaluation are
 not ported.
 """
@@ -213,8 +214,7 @@ def load_raw(path) -> Dict[str, Dict[int, np.ndarray]]:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--valid_dir", default=None,
-                        help="a NOCS folder on disk (not ported: use --synthetic)")
+    parser.add_argument("--valid_dir", default=None, help="a NOCS folder on disk")
     parser.add_argument("--synthetic", type=int, default=0,
                         help="evaluate on this many in-memory synthetic scenes")
     parser.add_argument("--synthetic_pose_cues", action="store_true")
@@ -234,20 +234,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def scene_source(hp, args):
-    from fastposecnn_tpu_torch.data.nocs import SyntheticNOCSSource
+    """The scenes to evaluate: `--synthetic N` in memory, else the folder
+    `--valid_dir`."""
+    from fastposecnn_tpu_torch.data.nocs import NOCSDataset, SyntheticNOCSSource
     from fastposecnn_tpu_torch.data.synthetic import SceneConfig
 
-    if args.valid_dir or not args.synthetic:
-        raise NotImplementedError(
-            "reading NOCS folders from disk is not ported: pass --synthetic N")
+    common = dict(dataset_name=hp.DATASET_NAME, selected_classes=hp.SELECTED_CLASSES,
+                  max_size=hp.VALID_SIZE, max_instances=hp.MAX_INSTANCES)
+    if not args.synthetic:
+        if not args.valid_dir:
+            raise SystemExit("No dataset: pass --valid_dir or --synthetic N")
+        return NOCSDataset(args.valid_dir, **common)
     cfg = SceneConfig(height=hp.IMAGE_HEIGHT, width=hp.IMAGE_WIDTH,
                       num_classes=hp.num_classes, max_instances=hp.MAX_INSTANCES,
                       render_pose_cues=args.synthetic_pose_cues,
                       cue_boost=args.synthetic_cue_boost)
-    return SyntheticNOCSSource(
-        args.synthetic, args.synthetic_seed, cfg, dataset_name=hp.DATASET_NAME,
-        selected_classes=hp.SELECTED_CLASSES, max_size=hp.VALID_SIZE,
-        max_instances=hp.MAX_INSTANCES)
+    return SyntheticNOCSSource(args.synthetic, args.synthetic_seed, cfg, **common)
 
 
 def build_network(hp, device):

@@ -2,27 +2,43 @@
 unless `--device cpu` is given.
 
     python -m fastposecnn_tpu_torch.cli.train -e NAME --preset HEAD_TRAINING \
-        --synthetic 12 --epochs 2 [--no_tb] [--resume checkpoints/last|snap.npz]
+        (--synthetic N | --train_dir D --valid_dir D) --epochs 2 [--no_tb]
+        [--stage_on_device [--restage_every K] [--snapshot_npz F]
+         [--bank_pool_dir D]] [--resume checkpoints/last|snap.npz]
         [--no_augment] [--device cpu] [--HPARAM value ...]
 
-Every `HParams` field is a `--FIELD` flag (FPC/train.py:102-112).
-`--synthetic N` trains on N in-memory synthetic scenes from seed 0 with the
-train augmentation, and validates on max(2, N // 4) scenes from seed 1 with
-the validation augmentation: the samples the JAX CLI writes as NOCS folders
-and reads back. The augmentation runs the native operators
-(`native/augment.cpp`, built with g++ at first use). Pretrained ImageNet
-encoder weights are not in the repo: training starts from seeded random
-weights or from `--resume`.
+Every `HParams` field is a `--FIELD` flag (FPC/train.py:102-112). The data
+are NOCS folders (`data.nocs.NOCSDataset`, PNGs decoded without an image
+package): `--train_dir`/`--valid_dir`, else the NOCS_{CAMERA,REAL}_
+{TRAIN,VALID}_DATASET variables (FPC/.env:1-27), or `--synthetic N`, which
+writes N synthetic scenes from seed 0 (train) and max(2, N // 4) from seed
+1 (valid) as NOCS folders, under `--bank_pool_dir` (a bank there with its
+`.complete` marker is reused) or under a temporary directory removed at
+the end of the run. The train split takes the train augmentation (through
+the native operators, `native/augment.cpp`), the valid split the
+noise-only one.
 
-Not ported, and refused: reading NOCS folders (`--train_dir`,
-`--valid_dir`, the NOCS_*_DATASET variables; ROADMAP.md item 14) and the
-device-resident staged trainer (`--stage_on_device`, `--restage_every`,
-`--snapshot_npz`, `--bank_pool_dir`; ROADMAP.md item 12).
+The streaming trainer (`train/loop.py`) reads batches through
+`PrefetchLoader`; `--stage_on_device` runs the device-resident staged
+trainer (`train/staged.py`), and with `--restage_every K` and
+`--synthetic` it re-stages every K epochs onto the next bank of a rotating
+pool (`data/bank_pool.py`) that a background renderer fills, with the
+staged plateau defaults (`config.staged_plateau_defaults`) unless
+--PLATEAU_PATIENCE/--PLATEAU_FACTOR are given. The staged trainer uses one
+device and only warns about `--NUM_DEVICES`; the streaming trainer refuses
+`--NUM_DEVICES` above 1 (data-parallel training is not ported, ROADMAP.md
+queue A item 13). Pretrained ImageNet encoder weights are not in the repo:
+training starts from seeded random weights or from `--resume`.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
+import os
+import pathlib
+import shutil
+import tempfile
 
 import numpy as np
 
@@ -30,18 +46,16 @@ from fastposecnn_tpu_torch import config as C
 from fastposecnn_tpu_torch import constants
 from fastposecnn_tpu_torch.device import resolve_device
 
-STAGED_FLAGS = ("stage_on_device", "restage_every", "snapshot_npz", "bank_pool_dir")
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("-e", "--experiment", default="TESTING")
     parser.add_argument("--preset", default="HEAD_TRAINING", choices=sorted(C.PRESETS))
-    parser.add_argument("--train_dir", default=None, help="not ported: use --synthetic")
-    parser.add_argument("--valid_dir", default=None, help="not ported: use --synthetic")
+    parser.add_argument("--train_dir", default=None, help="a NOCS training folder")
+    parser.add_argument("--valid_dir", default=None, help="a NOCS validation folder")
     parser.add_argument("--synthetic", type=int, default=0,
-                        help="train on N in-memory synthetic scenes")
+                        help="write N synthetic scenes as NOCS folders and train on them")
     parser.add_argument("--synthetic_pose_cues", action="store_true",
                         help="render pose-informative cues (projected size and "
                              "orientation shading)")
@@ -55,70 +69,157 @@ def build_parser() -> argparse.ArgumentParser:
                              "checkpoint (weights only)")
     parser.add_argument("--no_augment", action="store_true",
                         help="disable the per-split augmentation pipelines")
-    parser.add_argument("--stage_on_device", action="store_true", help="not ported")
-    parser.add_argument("--restage_every", type=int, default=0, help="not ported")
-    parser.add_argument("--snapshot_npz", default=None, help="not ported")
-    parser.add_argument("--bank_pool_dir", default=None, help="not ported")
+    parser.add_argument("--stage_on_device", action="store_true",
+                        help="device-resident trainer: stage the whole dataset in the "
+                             "card's memory and gather each batch there "
+                             "(train/staged.py)")
+    parser.add_argument("--restage_every", type=int, default=0,
+                        help="with --stage_on_device: re-stage the (augmented) training "
+                             "set every K epochs")
+    parser.add_argument("--snapshot_npz", default=None,
+                        help="with --stage_on_device: an npz weight snapshot of the best "
+                             "state, refreshed on the best-flush cadence (at most every "
+                             "10 min) and written once more at the end")
+    parser.add_argument("--bank_pool_dir", default=None,
+                        help="with --synthetic: a persistent directory for the banks "
+                             "and the rotating pool; a relaunched run reuses the banks "
+                             "rendered there (with the same scene config)")
     parser.add_argument("--device", default=None, help="'cuda' (the default) or 'cpu'")
     C.add_cli_overrides(parser, C.HParams())
     return parser
 
 
-def refuse_unported(args) -> None:
-    staged = [f"--{f}" for f in STAGED_FLAGS if getattr(args, f)]
-    if staged:
-        raise NotImplementedError(
-            f"{', '.join(staged)}: the device-resident staged trainer is not ported "
-            "(ROADMAP.md queue A item 12)")
-    if args.train_dir or args.valid_dir or not args.synthetic:
-        raise NotImplementedError(
-            "reading NOCS folders from disk (--train_dir, --valid_dir, NOCS_*_DATASET) "
-            "is not ported (ROADMAP.md queue A item 14): pass --synthetic N")
+def dataset_dirs(hp, args):
+    """(train, valid) folders from the flags, else the NOCS_* variables."""
+    name = hp.DATASET_NAME
+    return (args.train_dir or os.getenv(f"NOCS_{name}_TRAIN_DATASET"),
+            args.valid_dir or os.getenv(f"NOCS_{name}_VALID_DATASET"))
 
 
-def synthetic_sources(hp, args):
-    """(train, valid) in-memory sources: N scenes from seed 0 with the train
-    augmentation, max(2, N // 4) from seed 1 with the validation one."""
-    from fastposecnn_tpu_torch.data.nocs import SyntheticNOCSSource
+def render_if_empty(d: pathlib.Path, n: int, seed: int, scfg) -> pathlib.Path:
+    """`d`, rendered with `n` synthetic scenes of `seed` unless it already
+    holds a whole bank (its `.complete` marker); a torn bank is discarded."""
+    from fastposecnn_tpu_torch.data.nocs_writer import write_synthetic_nocs
+
+    if d.exists() and any(d.iterdir()):
+        if (d / ".complete").exists():
+            return d
+        logging.getLogger("fastposecnn_tpu_torch").warning(
+            "discarding incomplete scene bank %s (no .complete marker: torn render?)", d)
+        shutil.rmtree(d)
+    write_synthetic_nocs(d, n, seed, scfg)
+    return d
+
+
+def synthetic_banks(hp, args):
+    """(root, train folder, valid folder) of `--synthetic N`: N scenes of seed
+    0 and max(2, N // 4) of seed 1, under `--bank_pool_dir` or a new
+    temporary directory."""
     from fastposecnn_tpu_torch.data.synthetic import SceneConfig
 
+    if args.bank_pool_dir:
+        root = pathlib.Path(args.bank_pool_dir)
+        root.mkdir(parents=True, exist_ok=True)
+    else:
+        root = pathlib.Path(tempfile.mkdtemp(prefix="fpcnn_synth_"))
     scfg = SceneConfig(height=hp.IMAGE_HEIGHT, width=hp.IMAGE_WIDTH,
                        num_classes=hp.num_classes, max_instances=hp.MAX_INSTANCES,
                        render_pose_cues=args.synthetic_pose_cues,
                        cue_boost=args.synthetic_cue_boost)
+    train_dir = render_if_empty(root / "train", args.synthetic, 0, scfg)
+    valid_dir = render_if_empty(root / "valid", max(2, args.synthetic // 4), 1, scfg)
+    return root, train_dir, valid_dir
+
+
+def datasets(hp, args, train_dir, valid_dir):
+    """(train, valid) folder datasets with their splits' augmentation."""
+    from fastposecnn_tpu_torch.data.nocs import NOCSDataset
+
     common = dict(dataset_name=hp.DATASET_NAME, selected_classes=hp.SELECTED_CLASSES,
                   max_instances=hp.MAX_INSTANCES)
-    train = SyntheticNOCSSource(args.synthetic, 0, scfg, max_size=hp.TRAIN_SIZE,
-                                augmentation=None if args.no_augment else "train", **common)
-    valid = SyntheticNOCSSource(max(2, args.synthetic // 4), 1, scfg, max_size=hp.VALID_SIZE,
-                                augmentation=None if args.no_augment else "valid", **common)
+    train = NOCSDataset(train_dir, max_size=hp.TRAIN_SIZE,
+                        augmentation=None if args.no_augment else "train", **common)
+    valid = NOCSDataset(valid_dir, max_size=hp.VALID_SIZE,
+                        augmentation=None if args.no_augment else "valid", **common)
     return train, valid
 
 
 def main(argv=None):
-    """Parse, build the sources and loaders, and `train.loop.fit`. Returns
-    (final TrainState, run dir)."""
+    """Parse, build the datasets, and train with `train.loop.fit` or, with
+    --stage_on_device, `train.staged.fit_staged`. Returns (final TrainState,
+    run dir)."""
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     hp = C.PRESETS[args.preset](EXPERIMENT_NAME=args.experiment)
     hp = C.apply_cli_overrides(hp, args)
+    if args.stage_on_device and args.restage_every:
+        hp = C.staged_plateau_defaults(hp, patience_explicit=args.PLATEAU_PATIENCE is not None,
+                                       factor_explicit=args.PLATEAU_FACTOR is not None)
+    if hp.NUM_DEVICES > 1 and not args.stage_on_device:
+        raise NotImplementedError(
+            f"--NUM_DEVICES {hp.NUM_DEVICES}: data-parallel training is not ported "
+            "(ROADMAP.md queue A item 13); the port trains on one device")
     device = resolve_device(args.device)
     if hp.DETERMINISTIC:  # FPC/train.py:125-137
         np.random.seed(125)
 
-    from fastposecnn_tpu_torch.data.loader import PrefetchLoader
-    from fastposecnn_tpu_torch.train.loop import fit
+    train_dir, valid_dir = dataset_dirs(hp, args)
+    bank_pool = None
+    if args.synthetic:
+        from fastposecnn_tpu_torch.data.bank_pool import BankPool
 
-    train_ds, valid_ds = synthetic_sources(hp, args)
-    train_loader = PrefetchLoader(train_ds, hp.BATCH_SIZE, shuffle=not hp.DETERMINISTIC,
-                                  num_workers=hp.NUM_WORKERS)
-    valid_loader = PrefetchLoader(valid_ds, hp.BATCH_SIZE, shuffle=False,
-                                  num_workers=hp.NUM_WORKERS)
+        root, train_dir, valid_dir = synthetic_banks(hp, args)
+        # Each restage moves onto the next bank of a pool that a background
+        # renderer keeps filling from seeds 2, 3, ... (train is 0, valid 1):
+        # fresh scene geometry, so a fixed bank cannot be memorised.
+        bank_pool = BankPool(root, scene_count=args.synthetic, height=hp.IMAGE_HEIGHT,
+                             width=hp.IMAGE_WIDTH, num_classes=hp.num_classes,
+                             max_instances=hp.MAX_INSTANCES,
+                             pose_cues=args.synthetic_pose_cues,
+                             cue_boost=args.synthetic_cue_boost, initial=[train_dir])
+    if not train_dir or not valid_dir:
+        raise SystemExit("No dataset: set the NOCS_*_DATASET variables, pass "
+                         "--train_dir/--valid_dir, or use --synthetic N")
+
+    train_ds, valid_ds = datasets(hp, args, train_dir, valid_dir)
     inv_k = np.linalg.inv(constants.scaled_intrinsics(hp.DATASET_NAME, hp.IMAGE_HEIGHT,
                                                        hp.IMAGE_WIDTH))
-    state, run_dir = fit(hp, train_loader, valid_loader, inv_k, device=device,
-                         enable_tb=not args.no_tb, num_epochs=args.epochs,
-                         resume_from=args.resume)
+    try:
+        if args.stage_on_device:
+            from fastposecnn_tpu_torch.train.staged import fit_staged
+
+            if hp.NUM_DEVICES > 1:
+                print(f"WARNING: --stage_on_device trains on a SINGLE device; "
+                      f"--NUM_DEVICES {hp.NUM_DEVICES} is ignored.", flush=True)
+            regen = None
+            if bank_pool is not None and args.restage_every:
+                bank_pool.launch()  # fill the pool during staging and epoch 0
+
+                def regen(epoch: int) -> None:
+                    train_ds.repoint(bank_pool.rotate())
+            state, run_dir = fit_staged(
+                hp, train_ds, valid_ds, inv_k, device=device, enable_tb=not args.no_tb,
+                num_epochs=args.epochs, resume_from=args.resume,
+                restage_every=args.restage_every, regen_fn=regen,
+                snapshot_npz=args.snapshot_npz)
+        else:
+            from fastposecnn_tpu_torch.data.loader import PrefetchLoader
+            from fastposecnn_tpu_torch.train.loop import fit
+
+            train_loader = PrefetchLoader(train_ds, hp.BATCH_SIZE,
+                                          shuffle=not hp.DETERMINISTIC,
+                                          num_workers=hp.NUM_WORKERS)
+            valid_loader = PrefetchLoader(valid_ds, hp.BATCH_SIZE, shuffle=False,
+                                          num_workers=hp.NUM_WORKERS)
+            state, run_dir = fit(hp, train_loader, valid_loader, inv_k, device=device,
+                                 enable_tb=not args.no_tb, num_epochs=args.epochs,
+                                 resume_from=args.resume)
+    finally:
+        # Also after a failed fit: the in-flight render would go on using the
+        # host's CPU and the pool's disk.
+        if bank_pool is not None:
+            bank_pool.shutdown()
+            if not args.bank_pool_dir:
+                shutil.rmtree(bank_pool.root, ignore_errors=True)
     print(f"run dir: {run_dir}", flush=True)
     return state, run_dir
 

@@ -42,6 +42,20 @@ def _worker_get(i):
     return _WORKER_DS[int(i)]
 
 
+def _worker_stage_get(args):
+    """A sample for the staged trainer's long-lived worker pool: (index,
+    epoch, dataset_dir). The pool starts once, so the parent's dataset may
+    have moved to a later epoch or another folder since; the worker's copy
+    follows it before reading."""
+    i, epoch, root = args
+    ds = _WORKER_DS
+    if epoch is not None and getattr(ds, "epoch", None) != epoch:
+        ds.epoch = epoch
+    if root is not None and str(getattr(ds, "dataset_dir", None)) != str(root):
+        ds.repoint(root)
+    return ds[int(i)]
+
+
 class PrefetchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, seed: int = 0, prefetch: int = 2,
@@ -169,28 +183,41 @@ def pad_batch(batch: dict, batch_size: int) -> Tuple[dict, int]:
     return out, n
 
 
+def _on_device(values, device) -> torch.Tensor:
+    """A float32 vector of host constants built on `device` (a copy of a host
+    array to the card waits for it)."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32, device=device)
+                        for v in values])
+
+
 def upcast_image(image: torch.Tensor) -> torch.Tensor:
     """NHWC wire image -> float32 NCHW: uint8 is ImageNet-normalized, a
     float image keeps its values (assumed normalized by its producer)."""
     if image.dtype == torch.uint8:
-        mean = torch.as_tensor(IMAGENET_MEAN, device=image.device)
-        std = torch.as_tensor(IMAGENET_STD, device=image.device)
+        mean = _on_device(IMAGENET_MEAN, image.device)
+        std = _on_device(IMAGENET_STD, image.device)
         image = (image.float() / 255.0 - mean) / std
     return image.permute(0, 3, 1, 2).contiguous()
 
 
+def _tensor(x, device) -> torch.Tensor:
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device)
+
+
 def upcast_batch(batch: Dict, device) -> Dict:
-    """A numpy batch -> tensors on `device`: image as `upcast_image`, mask
+    """A batch of numpy arrays, or of wire tensors (the staged trainer's
+    gathered batches) -> tensors on `device`: image as `upcast_image`, mask
     int32, GT instance masks float32, every other GT field as it is, and
     `sample_valid` where the batch has it (`pad_batch` adds it)."""
-    agg = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-           for k, v in batch["agg"].items()}
+    agg = {k: _tensor(v, device) for k, v in batch["agg"].items()}
     agg["instance_masks"] = agg["instance_masks"].float()
     out = {
-        "image": upcast_image(torch.from_numpy(batch["image"]).to(device)),
-        "mask": torch.from_numpy(batch["mask"]).to(device).to(torch.int32),
+        "image": upcast_image(_tensor(batch["image"], device)),
+        "mask": _tensor(batch["mask"], device).to(torch.int32),
         "agg": agg,
     }
     if "sample_valid" in batch:
-        out["sample_valid"] = torch.from_numpy(batch["sample_valid"]).to(device)
+        out["sample_valid"] = _tensor(batch["sample_valid"], device)
     return out

@@ -1,14 +1,25 @@
-"""NOCS-format samples held in memory (counterpart of the JAX package's
-`data/nocs.py` reading what `data/nocs_writer.py` wrote).
+"""NOCS-format samples: the folder dataset `NOCSDataset` (counterpart of the
+JAX package's `data/nocs.py`, :83-332) and `SyntheticNOCSSource`, the same
+samples held in memory.
 
-`SyntheticNOCSSource` yields exactly the sample dicts that the JAX route
-`write_synthetic_nocs` -> `NOCSDataset.__getitem__` yields for the same
-seed, without writing or reading a PNG (the GPU machine has no PIL): the
-image quantized to uint8, the instance-id mask with 255 as background, the
-uint16 depth, the meta record with its float64 RTs, then the JAX reader's
-steps (distractors and unselected classes dropped, GT from
-`extract_instance_gt`, z <= 0 samples rejected as None). Reading NOCS PNG
-folders from disk is not ported.
+`NOCSDataset` scans a directory tree breadth-first, children sorted, for
+`*_color.png` files whose `*_meta+.json` holds an instance of a selected
+class (at most `max_size` of them), and reads a sample as the JAX reader
+does: the color image as uint8 RGB, the instance-id mask (a 3-channel
+CAMERA mask keeps channel 0; 255 is background), the depth (zeros when its
+file is missing; 3-channel depth is decoded by `standardize_depth`), the
+meta record; distractors and unselected classes are dropped, GT comes from
+`extract_instance_gt` at the sample's resolution, and a sample with z <= 0
+is rejected as None. Its PNGs are decoded by `data/png.py`, with no image
+package. `repoint` moves it to another folder (the staged trainer's bank
+rotation).
+
+`SyntheticNOCSSource` yields exactly the samples that
+`data/nocs_writer.write_synthetic_nocs` -> `NOCSDataset` yields for the same
+seed, without writing or reading a PNG: the image quantized to uint8, the
+instance-id mask with 255 as background, the uint16 depth, the meta record
+with its float64 RTs, then the same reading steps. The evaluate and
+inference CLIs and the smoke use it.
 
 With `augmentation` ('train' or 'valid') a sample ends as the JAX
 `NOCSDataset.__getitem__` ends (`data/nocs.py:288-314` there): its draws
@@ -16,17 +27,21 @@ come from `default_rng((aug_seed, epoch, i))`, 'train' applies the full
 compose (`augment.augment_sample` with the scaled intrinsics), 'valid'
 `augment.augment_validation`, and the image is requantized to uint8 with
 `rint`. `epoch` is set by `loader.PrefetchLoader` before an epoch's
-workers start. `native_augment` picks the augmentation's native operators
-(the default) or its numpy ones.
+workers start. `native` picks the host native code (`native/augment.cpp`:
+the augmentation's operators, and the folder's PNG unfilter; the default)
+or its numpy versions.
 """
 
 from __future__ import annotations
 
+import json
+import pathlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from fastposecnn_tpu_torch import constants
+from fastposecnn_tpu_torch.data.png import decode_png
 from fastposecnn_tpu_torch.data.synthetic import SceneConfig, generate_scene
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
@@ -86,25 +101,19 @@ def _scene_record(scene: dict) -> dict:
     return {"color": color, "mask": inst_mask, "depth": depth, "meta": meta}
 
 
-class SyntheticNOCSSource:
-    """`num_samples` synthetic scenes from one `default_rng(seed)` stream,
-    read as `NOCSDataset` reads them from disk: scenes without a selected
-    class are skipped and at most `max_size` are kept."""
+class _NOCSSamples:
+    """What both sources share: the class maps and the reading of one scene's
+    arrays into a sample (JAX `NOCSDataset.__getitem__`, :227-314)."""
 
-    def __init__(self, num_samples: int, seed: int,
-                 scene_cfg: Optional[SceneConfig] = None,
-                 dataset_name: str = "CAMERA",
-                 selected_classes: Optional[Sequence[str]] = None,
-                 max_size: Optional[int] = None, max_instances: int = 16,
-                 augmentation: Optional[str] = None, aug_seed: int = 0,
-                 aug_cfg=None, native_augment: bool = True):
+    def __init__(self, dataset_name: str, selected_classes: Optional[Sequence[str]],
+                 max_instances: int, augmentation: Optional[str], aug_seed: int,
+                 aug_cfg, native: bool):
         if augmentation not in (None, "train", "valid"):
             raise ValueError(f"unknown augmentation mode {augmentation!r}")
-        cfg = scene_cfg or SceneConfig()
         self.augmentation = augmentation
         self.aug_seed = aug_seed
         self.aug_cfg = aug_cfg
-        self.native_augment = native_augment
+        self.native = native
         self.epoch = 0
         self.dataset_name = dataset_name
         self.spec = constants.dataset_spec(dataset_name, selected_classes)
@@ -114,28 +123,15 @@ class SyntheticNOCSSource:
                                  for c in classes}
         self.symmetric_ids = set(self.spec.symmetric_class_ids())
         self.max_instances = max_instances
-        rng = np.random.default_rng(seed)
-        self.records: List[dict] = []
-        self.names: List[str] = []
-        for i in range(num_samples):
-            rec = _scene_record(generate_scene(rng, cfg))
-            if any(int(c) in self.class_values_map
-                   for c in rec["meta"]["instance_dict"].values()):
-                self.records.append(rec)
-                self.names.append(f"{i // 4:05d}/{i % 4:04d}_color.png")
-        if max_size is not None:
-            self.records = self.records[:max_size]
-            self.names = self.names[:max_size]
 
-    def __len__(self) -> int:
-        return len(self.records)
+    def _selected(self, meta: dict) -> bool:
+        return any(int(c) in self.class_values_map
+                   for c in meta.get("instance_dict", {}).values())
 
-    def __getitem__(self, i: int) -> Optional[Dict[str, np.ndarray]]:
-        rec = self.records[i]
-        mask_raw = rec["mask"].astype(np.int64)
-        mask_raw[mask_raw == 255] = 0
-        depth = standardize_depth(rec["depth"])
-        meta = rec["meta"]
+    def _sample(self, i: int, path: str, image: np.ndarray, mask_raw: np.ndarray,
+                depth: np.ndarray, meta: dict) -> Optional[Dict[str, np.ndarray]]:
+        mask_raw = mask_raw.astype(np.int64)
+        mask_raw[mask_raw == 255] = 0  # background
 
         kept = []  # (instance_id, mapped_class, row index into meta arrays)
         for row, (iid, cls) in enumerate(meta["instance_dict"].items()):
@@ -183,8 +179,8 @@ class SyntheticNOCSSource:
         if (agg["z"][agg["valid"]] <= 0).any():
             return None
         sample = {
-            "path": self.names[i],
-            "image": rec["color"],
+            "path": path,
+            "image": image,
             "mask": class_mask.astype(np.uint8),
             "depth": depth.astype(np.float32),
             "agg": agg,
@@ -199,12 +195,119 @@ class SyntheticNOCSSource:
         rng = np.random.default_rng((self.aug_seed, self.epoch, i))
         if self.augmentation == "train":
             sample = A.augment_sample(sample, rng, self.aug_cfg, intrinsics=K,
-                                      native=self.native_augment)
+                                      native=self.native)
         else:
             img = sample["image"].astype(np.float32) / 255.0
             sample["image"] = A.augment_validation(img, rng, self.aug_cfg)
         sample["image"] = np.clip(np.rint(sample["image"] * 255.0), 0, 255).astype(np.uint8)
         return sample
+
+
+class SyntheticNOCSSource(_NOCSSamples):
+    """`num_samples` synthetic scenes from one `default_rng(seed)` stream,
+    read as `NOCSDataset` reads them from disk: scenes without a selected
+    class are skipped and at most `max_size` are kept."""
+
+    def __init__(self, num_samples: int, seed: int,
+                 scene_cfg: Optional[SceneConfig] = None,
+                 dataset_name: str = "CAMERA",
+                 selected_classes: Optional[Sequence[str]] = None,
+                 max_size: Optional[int] = None, max_instances: int = 16,
+                 augmentation: Optional[str] = None, aug_seed: int = 0,
+                 aug_cfg=None, native: bool = True):
+        super().__init__(dataset_name, selected_classes, max_instances, augmentation,
+                         aug_seed, aug_cfg, native)
+        cfg = scene_cfg or SceneConfig()
+        rng = np.random.default_rng(seed)
+        self.records: List[dict] = []
+        self.names: List[str] = []
+        for i in range(num_samples):
+            rec = _scene_record(generate_scene(rng, cfg))
+            if self._selected(rec["meta"]):
+                self.records.append(rec)
+                self.names.append(f"{i // 4:05d}/{i % 4:04d}_color.png")
+        if max_size is not None:
+            self.records = self.records[:max_size]
+            self.names = self.names[:max_size]
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def __getitem__(self, i: int) -> Optional[Dict[str, np.ndarray]]:
+        rec = self.records[i]
+        return self._sample(i, self.names[i], rec["color"], rec["mask"],
+                            standardize_depth(rec["depth"]), rec["meta"])
+
+
+class NOCSDataset(_NOCSSamples):
+    """A NOCS folder on disk (CAMERA or REAL layout); see the module
+    docstring."""
+
+    def __init__(self, dataset_dir, dataset_name: str = "CAMERA",
+                 selected_classes: Optional[Sequence[str]] = None,
+                 max_size: Optional[int] = None, max_instances: int = 16,
+                 augmentation: Optional[str] = None, aug_seed: int = 0,
+                 aug_cfg=None, native: bool = True):
+        super().__init__(dataset_name, selected_classes, max_instances, augmentation,
+                         aug_seed, aug_cfg, native)
+        self.max_size = max_size
+        self.dataset_dir = pathlib.Path(dataset_dir)
+        self.images_fps = self._scan(self.dataset_dir)
+
+    def repoint(self, dataset_dir) -> None:
+        """Point the dataset at another folder of the same format and rescan."""
+        self.dataset_dir = pathlib.Path(dataset_dir)
+        self.images_fps = self._scan(self.dataset_dir)
+
+    def _scan(self, root: pathlib.Path) -> List[pathlib.Path]:
+        """Breadth-first, children sorted; stops once `max_size` are found."""
+        found: List[pathlib.Path] = []
+        queue = [root]
+        while queue:
+            d = queue.pop(0)
+            if not d.exists():
+                continue
+            for child in sorted(d.iterdir()):
+                if child.is_dir():
+                    queue.append(child)
+                elif child.name.endswith("_color.png") and self._has_instances(child):
+                    found.append(child)
+            if self.max_size is not None and len(found) >= self.max_size:
+                break
+        return found[:self.max_size] if self.max_size is not None else found
+
+    @staticmethod
+    def _sibling(color_fp, suffix: str) -> pathlib.Path:
+        return pathlib.Path(str(color_fp).replace("_color.png", suffix))
+
+    def _has_instances(self, color_fp) -> bool:
+        meta_fp = self._sibling(color_fp, "_meta+.json")
+        return meta_fp.exists() and self._selected(json.loads(meta_fp.read_text()))
+
+    def __len__(self) -> int:
+        return len(self.images_fps)
+
+    def __getitem__(self, i: int) -> Optional[Dict[str, np.ndarray]]:
+        fp = self.images_fps[i]
+        image = decode_png(fp, native=self.native, rgb=True)
+        mask_raw = decode_png(self._sibling(fp, "_mask.png"), native=self.native)
+        if self.dataset_name == "CAMERA" and mask_raw.ndim == 3:
+            mask_raw = mask_raw[:, :, 0]
+        depth_fp = self._sibling(fp, "_depth.png")
+        depth = (standardize_depth(decode_png(depth_fp, native=self.native))
+                 if depth_fp.exists() else np.zeros(mask_raw.shape, np.uint16))
+        meta = json.loads(self._sibling(fp, "_meta+.json").read_text())
+        return self._sample(i, str(fp), image, mask_raw, depth, meta)
+
+
+class CAMERADataset(NOCSDataset):
+    def __init__(self, dataset_dir, **kw):
+        super().__init__(dataset_dir, dataset_name="CAMERA", **kw)
+
+
+class REALDataset(NOCSDataset):
+    def __init__(self, dataset_dir, **kw):
+        super().__init__(dataset_dir, dataset_name="REAL", **kw)
 
 
 def collate(samples: Sequence[Optional[dict]]) -> Optional[Dict]:

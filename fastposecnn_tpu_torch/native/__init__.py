@@ -1,2 +1,3 @@
-"""Host native code of the port: the augmentation operators (`augment.cpp`),
-built with g++ at first use and bound with ctypes (`augment_lib.py`)."""
+"""Host native code of the port: the augmentation operators and the PNG row
+unfilter (`augment.cpp`), built with g++ at first use and bound with ctypes
+(`augment_lib.py`)."""

@@ -1,4 +1,5 @@
-// Host augmentation operators of fastposecnn_tpu_torch's training data path.
+// Host operators of fastposecnn_tpu_torch's training data path: the
+// augmentation operators and the PNG row unfilter.
 //
 // A copy of the augmentation section of the JAX package's
 // native/fpcnn_native.cpp (its fpcnn_aug_* functions and their helpers),
@@ -10,10 +11,14 @@
 // (-ffp-contract=off) and without -ffast-math. Built with g++ by
 // fastposecnn_tpu_torch/native/augment_lib.py and loaded with ctypes.
 // Images are contiguous float32 [h, w, 3] RGB in [0, 1] unless noted.
+// fpcnn_png_unfilter, at the end, is the sequential step of PNG decoding
+// (fastposecnn_tpu_torch/data/png.py, whose numpy unfilter is its plain
+// version); zlib stays in Python.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <vector>
 
@@ -363,6 +368,51 @@ void fpcnn_aug_sharpen(const float* src, float* dst, int h, int w, int c,
       emit(last, w > 1 ? last - c : last, last);
     }
   }
+}
+
+// PNG row unfilter (PNG spec, section 9): `src` holds `h` rows of one
+// filter byte and `row_bytes` bytes, as zlib inflated them; `dst` receives
+// the h * row_bytes reconstructed bytes. bpp: the bytes of one pixel (>= 1).
+// Returns 0, or 1 + the index of the first row whose filter byte is not 0-4.
+int fpcnn_png_unfilter(const uint8_t* src, uint8_t* dst, int h, int row_bytes,
+                       int bpp) {
+  for (int r = 0; r < h; ++r) {
+    const uint8_t* in = src + (size_t)r * (row_bytes + 1) + 1;
+    uint8_t* out = dst + (size_t)r * row_bytes;
+    const uint8_t* up = r > 0 ? out - row_bytes : nullptr;
+    switch (in[-1]) {
+      case 0:
+        std::memcpy(out, in, row_bytes);
+        break;
+      case 1:  // Sub
+        for (int i = 0; i < row_bytes; ++i)
+          out[i] = (uint8_t)(in[i] + (i >= bpp ? out[i - bpp] : 0));
+        break;
+      case 2:  // Up
+        for (int i = 0; i < row_bytes; ++i)
+          out[i] = (uint8_t)(in[i] + (up ? up[i] : 0));
+        break;
+      case 3:  // Average
+        for (int i = 0; i < row_bytes; ++i) {
+          int a = i >= bpp ? out[i - bpp] : 0, b = up ? up[i] : 0;
+          out[i] = (uint8_t)(in[i] + ((a + b) >> 1));
+        }
+        break;
+      case 4:  // Paeth
+        for (int i = 0; i < row_bytes; ++i) {
+          int a = i >= bpp ? out[i - bpp] : 0, b = up ? up[i] : 0;
+          int c = (up && i >= bpp) ? up[i - bpp] : 0;
+          int p = a + b - c;
+          int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+          int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          out[i] = (uint8_t)(in[i] + pred);
+        }
+        break;
+      default:
+        return r + 1;
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-"""Build the host augmentation operators (`augment.cpp` beside this file)
-with `g++` and bind them with `ctypes` (counterpart of the `aug_*` wrappers
-of the JAX package's `data/native_loader.py`).
+"""Build the host operators of the training data path (`augment.cpp` beside
+this file: the augmentation operators and the PNG row unfilter) with `g++`
+and bind them with `ctypes` (counterpart of the `aug_*` wrappers of the JAX
+package's `data/native_loader.py`; `data/png.py` wraps the unfilter).
 
 The library is compiled at first use (`load_library()`), never at import,
 into `fastposecnn_tpu_torch/_build/`, named by a hash of the source, the
@@ -94,6 +95,8 @@ def load_library() -> ctypes.CDLL:
         lib.fpcnn_aug_conv3x3.argtypes = [_F32P, _F32P, i, i, i, _F32P, f]
         lib.fpcnn_aug_sharpen.argtypes = [_F32P, _F32P, i, i, i, ctypes.c_double,
                                           ctypes.c_double]
+        lib.fpcnn_png_unfilter.argtypes = [_U8P, _U8P, i, i, i]
+        lib.fpcnn_png_unfilter.restype = ctypes.c_int
         for fn in (lib.fpcnn_aug_hsv_jitter, lib.fpcnn_aug_clahe,
                    lib.fpcnn_aug_warp_bilinear, lib.fpcnn_aug_warp_nearest,
                    lib.fpcnn_aug_conv3x3, lib.fpcnn_aug_sharpen):

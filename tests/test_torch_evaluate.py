@@ -174,9 +174,8 @@ def test_clis_default_to_cuda(monkeypatch, tmp_path):
         tev.main(SMALL + ["--output", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         tinf.main(SMALL[:4])
-    with pytest.raises(NotImplementedError):  # disk folders are not ported
-        tev.main(["--valid_dir", str(tmp_path), "--device", "cpu",
-                  "--output", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):  # a NOCS folder too
+        tev.main(["--valid_dir", str(tmp_path), "--output", str(tmp_path)])
 
 
 @pytest.mark.slow

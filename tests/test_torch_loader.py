@@ -142,7 +142,7 @@ def test_augmented_source_matches_nocs_dataset(tmp_path, augmentation, epoch, na
     want = jnocs.NOCSDataset(root, max_instances=6, augmentation=augmentation, aug_seed=1)
     got = tnocs.SyntheticNOCSSource(n_scenes, seed, tsyn.SceneConfig(**cfg), max_instances=6,
                                     augmentation=augmentation, aug_seed=1,
-                                    native_augment=native)
+                                    native=native)
     want.epoch = got.epoch = epoch
     plain = tnocs.SyntheticNOCSSource(n_scenes, seed, tsyn.SceneConfig(**cfg), max_instances=6)
     assert len(got) == len(want) > 3

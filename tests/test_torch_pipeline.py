@@ -110,7 +110,8 @@ def test_port_sources_import_no_jax():
     assert REPO / "fastposecnn_tpu_torch" / "probes" / "vote_variants.py" in files
     for module in ("losses.py", "train/optim.py", "train/task.py", "train/checkpoint.py",
                    "train/loop.py", "cli/train.py", "data/augment.py",
-                   "native/augment_lib.py", "utils/tb.py"):
+                   "native/augment_lib.py", "utils/tb.py", "data/png.py",
+                   "data/nocs_writer.py", "data/bank_pool.py", "train/staged.py"):
         assert REPO / "fastposecnn_tpu_torch" / module in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -143,7 +144,8 @@ assert 'fastposecnn_tpu_torch.probes.vote_variants' in sys.modules
 assert 'fastposecnn_tpu_torch.train.task' in sys.modules
 assert 'fastposecnn_tpu_torch.losses' in sys.modules
 for name in ('train.checkpoint', 'train.loop', 'cli.train', 'data.augment',
-             'native.augment_lib', 'utils.tb'):
+             'native.augment_lib', 'utils.tb', 'data.png', 'data.nocs_writer',
+             'data.bank_pool', 'train.staged'):
     assert 'fastposecnn_tpu_torch.' + name in sys.modules, name
 print('ok')
 """
