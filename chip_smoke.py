@@ -27,12 +27,21 @@ collate, the PNG decode native and numpy), measures what TF32
 would change in the network (and checks that the entry points' float32
 does not reuse a convolution algorithm that cuDNN's heuristics chose
 outside them), checks that a served frame enqueues with
-no host sync until it reads the CC kernel's error flag at its end, and
+no host sync until it reads the CC kernel's error flag at its end, serves
+the same requests with the resnet34 and resnet50 encoders (K1 and K2 once
+a frame; each network's logits on the card against the CPU's) and with
+soft voting (K1 once a frame, K2 never; oracle centres within 1.5 px; the
+soft vote on the card against the CPU), holds vanishing-point voting on
+the card against the CPU, trains resnet50 at full width (HEAD_TRAINING
+steps, a step through the kernels against their plain versions, one
+epoch of the train CLI with `--ENCODER resnet50`), and
 times the kernels at the served and the evaluated shapes (K1 beside its
 floor: its launches with empty kernels), their plain versions, the
 adaptive loop's host syncs, 30 served frames, and what a host sync right
-after K1 cost the frame, and the train steps of each preset with the
-share of a HEAD_TRAINING step spent voting, with CUDA events. Everything runs
+after K1 cost the frame, the train steps of each preset with the
+share of a HEAD_TRAINING step spent voting, the served frame of each
+encoder and of soft voting (with the share spent in its
+`hypothesis_weights`) and resnet50's train step, with CUDA events. Everything runs
 in full float32 (TF32 off), as the port's entry points compute, but for
 the network's TF32 timing, which sets the flags around a direct call.
 
@@ -468,6 +477,21 @@ def phase_known_scene(dev):
                                               atol=2e-4, rtol=1e-4))
 
 
+def served_images(dev, requests):
+    """The serve phase's seeded random 480x640 requests."""
+    gen = torch.Generator(dev).manual_seed(123)
+    return [torch.randn((1, 3, H, W), generator=gen, device=dev) for _ in range(requests)]
+
+
+def check_answers(answers):
+    for mask, class_ids, xy, z, RT in answers:
+        shapes = [tuple(t.shape) for t in (mask, class_ids, xy, z, RT)]
+        if shapes != [(1, H, W), (1, 16), (1, 16, 2), (1, 16), (1, 16, 4, 4)]:
+            raise AssertionError(f"served shapes {shapes}")
+        if not all(bool(torch.isfinite(t).all()) for t in (xy, z, RT)):
+            raise AssertionError("served outputs are not finite")
+
+
 def phase_serve(dev, requests=5):
     """The main path: `InferenceServer` at full width answers `requests`
     seeded random 480x640 images with seeded random weights. The caller
@@ -476,9 +500,7 @@ def phase_serve(dev, requests=5):
     from fastposecnn_tpu_torch.serve import InferenceServer
 
     server = InferenceServer(device="cuda", seed=0)
-    gen = torch.Generator(dev).manual_seed(123)
-    images = [torch.randn((1, 3, H, W), generator=gen, device=dev)
-              for _ in range(requests)]
+    images = served_images(dev, requests)
     seen = []  # the TF32 and cuDNN flags at each call of the network
     hook = server.net.register_forward_pre_hook(lambda *_: seen.append(
         (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
@@ -493,12 +515,7 @@ def phase_serve(dev, requests=5):
     hook.remove()
     if seen != [(False, False, True, True)] * requests:
         raise AssertionError(f"the served frames ran the network with flags {seen}")
-    for mask, class_ids, xy, z, RT in answers:
-        shapes = [tuple(t.shape) for t in (mask, class_ids, xy, z, RT)]
-        if shapes != [(1, H, W), (1, 16), (1, 16, 2), (1, 16), (1, 16, 4, 4)]:
-            raise AssertionError(f"served shapes {shapes}")
-        if not all(bool(torch.isfinite(t).all()) for t in (xy, z, RT)):
-            raise AssertionError("served outputs are not finite")
+    check_answers(answers)
     if min(launches[k] for k in PATH_KERNELS) < requests:
         raise AssertionError(f"the main path skipped a kernel: {launches}")
     emit("serve", requests=requests, launches=launches,
@@ -1133,7 +1150,7 @@ def train_setup(dev, preset, seed, h=H, w=W, classes=7, batch=3, **overrides):
 
     hp = preset(IMAGE_HEIGHT=h, IMAGE_WIDTH=w, SELECTED_CLASSES=CAMERA_CLASSES[:classes],
                 BATCH_SIZE=batch, **overrides)
-    net = init_random_(PoseRegressorNet(hp.num_classes), seed).to(dev)
+    net = init_random_(PoseRegressorNet(hp.num_classes, encoder_name=hp.ENCODER), seed).to(dev)
     opt = T.make_optimizer(hp, net)
     scenes = SceneConfig(height=h, width=w, num_classes=classes,
                          max_instances=hp.MAX_INSTANCES, max_scene_instances=6)
@@ -1145,10 +1162,11 @@ def train_setup(dev, preset, seed, h=H, w=W, classes=7, batch=3, **overrides):
                 step=T.make_train_step(net, opt, hp, pcfg, inv_k, dev))
 
 
-def timed_steps(run, n, seed=0):
+def timed_steps(run, n, seed=0, dropout_keep=None):
     """`n` steps of run["step"] from run["state"] (updated), each timed with
     CUDA events, and the time of its hough-voting stage (events around
-    `pipeline.stage_hough_voting`). Returns (logs, step ms, voting ms)."""
+    `pipeline.stage_hough_voting`); every step with the decoders' keep masks
+    `dropout_keep` when given. Returns (logs, step ms, voting ms)."""
     from fastposecnn_tpu_torch import pipeline as P
 
     original, spans = P.stage_hough_voting, []
@@ -1167,7 +1185,8 @@ def timed_steps(run, n, seed=0):
         for _ in range(n):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            run["state"], step_logs = run["step"](run["state"], run["batch"], seed=seed)
+            run["state"], step_logs = run["step"](run["state"], run["batch"], seed=seed,
+                                                  dropout_keep=dropout_keep)
             end.record()
             end.synchronize()
             ms.append(start.elapsed_time(end))
@@ -1274,19 +1293,21 @@ def recorded(module, name, sink):
     return original
 
 
-def phase_train_kernels(dev):
+def phase_train_kernels(dev, phase="train_kernels", seed=13, grads_l2=None, **overrides):
     """One full-width HEAD_TRAINING step from one state through the kernels
     and through their plain versions (`impl="reference"`): the CC labels,
     every round's vote counts and the rounds exactly equal; the logs,
     gradients, updated parameters and BatchNorm statistics at the golden
-    tolerance (atol 2e-4, rtol 1e-4)."""
+    tolerance (atol 2e-4, rtol 1e-4), or, with `grads_l2`, the gradients
+    in L2 per tensor within that share of the plain run's norm. `overrides`
+    go to the preset (the `train_encoders` phase passes its ENCODER)."""
     import copy
 
     from fastposecnn_tpu_torch import config as C
     from fastposecnn_tpu_torch.ops import aggregation, voting
     from fastposecnn_tpu_torch.train import task as T
 
-    run = train_setup(dev, C.head_training, seed=13)
+    run = train_setup(dev, C.head_training, seed=seed, **overrides)
     ref_net = copy.deepcopy(run["state"].net)
     ref = dict(run, state=T.TrainState(ref_net, copy.deepcopy(run["state"].opt_state)),
                step=T.make_train_step(ref_net, run["opt"], run["hp"],
@@ -1324,14 +1345,27 @@ def phase_train_kernels(dev):
     for k in b["logs"]:
         hold("logs", a["logs"][k], b["logs"][k])
     params = dict(ref["state"].net.named_parameters())
+    grad_rel = 0.0
     for n, p in run["state"].net.named_parameters():
-        hold("grads", p.grad, params[n].grad)
+        want = params[n].grad
+        if grads_l2 is None or p.grad is None or want is None or not want.any():
+            hold("grads", p.grad, want)
+            continue
+        rel = float((p.grad - want).norm() / want.norm())
+        grad_rel = max(grad_rel, rel)
+        worst["grads"] = max(worst.get("grads", 0.0), float((p.grad - want).abs().max()))
+        if not rel <= grads_l2:
+            raise AssertionError(f"grad {n}: kernels and plain versions differ by {rel} in L2")
     ref_sd = ref["state"].net.state_dict()
     for n, t in run["state"].net.state_dict().items():
         hold("params_and_batch_stats", t.float(), ref_sd[n].float())
-    emit("train_kernels", hw=[H, W], batch=3, tolerance=dict(
-        cc_labels="exact", vote_counts="exact", rounds="exact", logs_grads_params=dict(
-            atol=2e-4, rtol=1e-4)), rounds=len(b["counts"]), max_abs_diff=worst)
+    tolerance = dict(cc_labels="exact", vote_counts="exact", rounds="exact",
+                     logs_grads_params=dict(atol=2e-4, rtol=1e-4))
+    if grads_l2 is not None:
+        tolerance.update(logs_params=tolerance.pop("logs_grads_params"),
+                         grads_relative_l2=grads_l2)
+    emit(phase, hw=[H, W], batch=3, encoder=run["hp"].ENCODER, tolerance=tolerance,
+         rounds=len(b["counts"]), max_abs_diff=worst, max_grad_relative_l2=grad_rel)
 
 
 def phase_train_cpu(dev, h=96, w=128):
@@ -2085,6 +2119,299 @@ def phase_network_precision(dev, server, smi, pairs=10):
     return out
 
 
+# -----------------------------------------------------------------------------
+# Every network and voting configuration
+
+
+def drive_server(server, images):
+    """The main path of a served configuration: every count set to 0 just
+    before the requests and read just after. Returns (answers, counts)."""
+    from fastposecnn_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    answers = [server(img) for img in images]
+    torch.cuda.synchronize()
+    return answers, kernels.launch_counts()
+
+
+def logits_card_vs_cpu(dev, encoder, seed, h=96, w=128):
+    """The network of `encoder` with seeded random weights at a reduced size
+    (7 classes, batch 1, eval mode): its logits on the card in full float32
+    against the CPU's, at the golden tolerance. Returns the largest
+    difference per head."""
+    from fastposecnn_tpu_torch.device import full_float32
+    from fastposecnn_tpu_torch.models import PoseRegressorNet
+    from fastposecnn_tpu_torch.models.weights import init_random_
+
+    net = init_random_(PoseRegressorNet(7, encoder_name=encoder), seed).eval()
+    x = torch.randn((1, 3, h, w), generator=torch.Generator().manual_seed(seed))
+    with torch.inference_mode():
+        want = net(x)
+        with full_float32():
+            got = net.to(dev)(x.to(dev))
+    diff = {}
+    for k, v in want.items():
+        g = got[k].cpu()
+        diff[k] = float((g - v).abs().max())
+        if not torch.allclose(g, v, atol=2e-4, rtol=1e-4):
+            raise AssertionError(f"{encoder} logits '{k}': card and CPU differ by {diff[k]}")
+    return diff
+
+
+def phase_serve_encoders(dev, smi, resnet18_server, requests=4):
+    """`InferenceServer` with ENCODER resnet34 and resnet50 (the INFERENCE
+    preset: 4096 hypotheses, 1024 points, 16 slots; seeded random weights)
+    answers the serve phase's requests: K1 and K2 once a frame, finite
+    answers of the served shapes. Each network's logits on the card match
+    the CPU's at 96x128 at the golden tolerance. Then the median served
+    frame of resnet18 (the serve phase's server), resnet34 and resnet50,
+    with CUDA events, in this call."""
+    from fastposecnn_tpu_torch.models.resnet import RESNET_SPECS
+    from fastposecnn_tpu_torch.serve import InferenceServer
+
+    images = served_images(dev, requests)
+    launches, logit_diff, servers = {}, {}, {"resnet18": resnet18_server}
+    for i, name in enumerate(("resnet34", "resnet50")):
+        server = InferenceServer(device=dev, seed=0, ENCODER=name)
+        enc = server.net.encoder
+        if (enc.out_channels != RESNET_SPECS[name].out_channels
+                or [len(getattr(enc, f"layer{j}")) for j in range(1, 5)] != [3, 4, 6, 3]):
+            raise AssertionError(f"the server built {enc.encoder_name} for {name}")
+        answers, launches[name] = drive_server(server, images)
+        check_answers(answers)
+        if launches[name]["cc_label"] != requests or launches[name]["vote_count"] != requests:
+            raise AssertionError(f"{name}: launches {launches[name]} for {requests} frames")
+        logit_diff[name] = logits_card_vs_cpu(dev, name, seed=20 + i)
+        servers[name] = server
+    frame_ms = {name: median_ms(lambda srv=srv: srv(images[0]), iters=20)
+                for name, srv in servers.items()}
+    emit("serve_encoders", card=smi, requests=requests, launches=launches,
+         launches_per_frame={n: {k: v / requests for k, v in c.items()}
+                             for n, c in launches.items()},
+         logits_card_vs_cpu=dict(hw=[96, 128], tolerance=dict(atol=2e-4, rtol=1e-4),
+                                 max_abs_diff=logit_diff),
+         served_frame_ms_median=frame_ms)
+    return {k: sum(c[k] for c in launches.values()) for k in launches["resnet34"]}
+
+
+def phase_serve_soft(dev, smi, requests=4):
+    """Soft voting (`HV_IMPLEMENTATION="soft"`, resnet18, the INFERENCE
+    preset's 4096 hypotheses and 1024 points, iqr pruning). On perfect
+    logits of the oracle scenes every GT centre has a voted centre within
+    1.5 px (the JAX test's bound). The same aggregated inputs and draws on
+    the card and on the CPU give the same hypotheses and centres at the
+    golden tolerance. `InferenceServer` answers the serve phase's requests
+    with K1 once a frame and K2 never. Prints the median served frame and
+    the share of it in `hypothesis_weights` (CUDA events around each call in
+    20 frames), and `hypothesis_weights` alone at the served shape."""
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch import pipeline as P
+    from fastposecnn_tpu_torch.device import full_float32
+    from fastposecnn_tpu_torch.ops import voting_soft
+    from fastposecnn_tpu_torch.ops.voting import VoteDraws
+    from fastposecnn_tpu_torch.serve import InferenceServer
+
+    hp = C.inference(HV_IMPLEMENTATION="soft")
+    pcfg = C.pipeline_config_from(hp)
+    logits, gts, inv_K, _ = oracle_batch(dev, scenes=4)
+    gen = torch.Generator(dev).manual_seed(31)
+    with torch.inference_mode(), full_float32():
+        agg = P.run_pipeline(logits, pcfg, inv_K, generator=gen)["aggregated"]
+    worst = 0.0
+    for b in range(gts["valid"].shape[0]):
+        pred = agg["xy"][b][agg["valid"][b]]
+        for g in gts["xy"][b][gts["valid"][b]]:
+            d = float((pred - g).norm(dim=-1).min()) if len(pred) else math.inf
+            worst = max(worst, d)
+    if not worst < 1.5:
+        raise AssertionError(f"a GT centre has no soft-voted centre within 1.5 px: {worst}")
+
+    # card against CPU: the same aggregated inputs (2 scenes) and draws
+    with torch.inference_mode(), full_float32():
+        cat = P.stage_class_compress({k: v[:2] for k, v in logits.items()})
+        agg2 = P.stage_aggregate(cat, pcfg)
+    b, n, p, h = 2, hp.MAX_INSTANCES, hp.MAX_VOTE_POINTS, hp.HV_NUM_OF_HYPOTHESES
+    draws = VoteDraws(u=torch.rand((b, n, p), generator=gen, device=dev),
+                      pairs=torch.randint(0, p, (1, b * n, h, 2), generator=gen, device=dev))
+    inputs = {k: agg2[k] for k in ("valid", "instance_masks", "xy_dense")}
+    kw = dict(max_points=p, num_hypotheses=h, prun_method=pcfg.prun_method,
+              in_mask_multiplier=pcfg.hv_in_mask_multiplier)
+    with torch.inference_mode():
+        on_card = voting_soft.soft_hough_vote(inputs, draws=draws, **kw)
+        on_cpu = voting_soft.soft_hough_vote(
+            {k: v.cpu() for k, v in inputs.items()},
+            draws=VoteDraws(u=draws.u.cpu(), pairs=draws.pairs.cpu()), **kw)
+    vs_cpu = {}
+    for k in ("xy", "hypothesis", "pruned_hypothesis"):
+        a, want = on_card[k].cpu(), on_cpu[k]
+        vs_cpu[k] = float((a - want).abs().max())
+        if not torch.allclose(a, want, atol=2e-4, rtol=1e-4):
+            raise AssertionError(f"soft voting '{k}': card and CPU differ by {vs_cpu[k]}")
+
+    # the served frames
+    server = InferenceServer(device=dev, seed=0, HV_IMPLEMENTATION="soft")
+    images = served_images(dev, requests)
+    answers, launches = drive_server(server, images)
+    check_answers(answers)
+    if launches["cc_label"] != requests or any(
+            v for k, v in launches.items() if k != "cc_label"):
+        raise AssertionError(f"soft serving launched {launches} for {requests} frames")
+    original, spans = voting_soft.hypothesis_weights, []
+
+    def timed_weights(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    server(images[0])
+    frames, shares = [], []
+    voting_soft.hypothesis_weights = timed_weights
+    try:
+        for _ in range(20):
+            spans.clear()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            server(images[0])
+            end.record()
+            end.synchronize()
+            frames.append(start.elapsed_time(end))
+            shares.append(sum(a.elapsed_time(z) for a, z in spans) / frames[-1])
+    finally:
+        voting_soft.hypothesis_weights = original
+    hyps, pts, dirs, pv, _ = vote_inputs(dev, n, h, p, n, seed=32)
+    weights_ms = median_ms(lambda: voting_soft.hypothesis_weights(hyps, pts, dirs, pv),
+                           iters=10)
+    emit("serve_soft", card=smi, requests=requests, launches=launches,
+         oracle=dict(scenes=4, worst_gt_centre_px=worst, bound_px=1.5),
+         card_vs_cpu=dict(scenes=2, tolerance=dict(atol=2e-4, rtol=1e-4), max_abs_diff=vs_cpu),
+         served_frame_ms_median=statistics.median(frames),
+         hypothesis_weights_share_median=statistics.median(shares),
+         hypothesis_weights_ms_served_shape=dict(shape=[n, h, p], ms=weights_ms))
+    return launches
+
+
+def phase_voting_vp(dev, smi, m=16, h=256, p=1024):
+    """`ransac_vanishing_points` on the card against the CPU with the same
+    point pairs (16 slots, 12 active, 1024 points, 256 hypotheses): the
+    winners' counts exactly equal, the unit points within 1e-3 (as
+    scripts/chip_check.py:264 allows). Launches no kernel."""
+    from fastposecnn_tpu_torch import kernels
+    from fastposecnn_tpu_torch.ops.voting_vp import ransac_vanishing_points
+
+    _, pts, dirs, pv, act = vote_inputs(dev, m, 1, p, 12, seed=33)
+    pairs = torch.randint(0, p, (m, h, 2), generator=torch.Generator().manual_seed(34))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        best, counts = ransac_vanishing_points(pts, dirs, act, pairs.to(dev), pt_valid=pv > 0)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    with torch.inference_mode():
+        want_best, want_counts = ransac_vanishing_points(pts.cpu(), dirs.cpu(), act.cpu(),
+                                                         pairs, pt_valid=pv.cpu() > 0)
+    if not torch.equal(counts.cpu(), want_counts):
+        raise AssertionError(f"vanishing-point counts differ: {counts.cpu()} vs {want_counts}")
+    err = float((best.cpu() - want_best).abs().max())
+    if not err <= 1e-3 or not bool(want_counts[act.cpu()].min() > 0) or any(launches.values()):
+        raise AssertionError(f"vanishing points differ by {err}, a count is 0 or a kernel "
+                             f"launched: {launches}")
+    ms = median_ms(lambda: ransac_vanishing_points(pts, dirs, act, pairs.to(dev),
+                                                   pt_valid=pv > 0), iters=10)
+    emit("voting_vp", card=smi, shape=[m, h, p], counts_equal=True, max_abs_diff_unit=err,
+         tolerance_unit=1e-3, winner_counts=[float(c) for c in want_counts], ms=ms,
+         launches=launches)
+    return launches
+
+
+def phase_train_encoders(dev, smi, steps=5):
+    """ResNet50 trains at full width: `steps` HEAD_TRAINING steps (480x640,
+    7 classes, batch 3, the preset's defaults) through the port's train
+    step, each with the same seeded dropout masks (the frozen mask decoder's
+    dropout would otherwise move the loss more than a step does), with every
+    loss finite and the dense xy loss falling (the loss HEAD_TRAINING's
+    gradients carry; the matched losses follow each step's vote draws and
+    instances, and the frozen mask loss does not fall), K1 once a step
+    and K2 once a RANSAC round, and the median ms a step (the first, with
+    cuDNN's autotuning, left out); one step through the kernels against one
+    through their plain versions (as `train_kernels`, the gradients in L2);
+    then the train CLI
+    for one epoch with `--ENCODER resnet50` on 3 synthetic scenes, whose
+    network must be a resnet50."""
+    import os
+
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch import kernels
+    from fastposecnn_tpu_torch.models.resnet import BottleneckBlock
+
+    run = train_setup(dev, C.head_training, seed=16, ENCODER="resnet50")
+    net = run["state"].net
+    if not isinstance(net.encoder.layer3[0], BottleneckBlock):
+        raise AssertionError("train_setup did not build resnet50")
+    keep = net.draw_dropout_keep(3, dev, torch.Generator(dev).manual_seed(3))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    logs, step_ms, vote_ms = timed_steps(run, steps, dropout_keep=keep)
+    launches = kernels.launch_counts()
+    losses = [lg["pose/total_loss"] for lg in logs]
+    dense = [lg["xy/loss_dense"] for lg in logs]
+    rounds = [int(lg["pose/vote_rounds"]) for lg in logs]
+    if not all(math.isfinite(v) for lg in logs for v in lg.values()) or not dense[-1] < dense[0]:
+        raise AssertionError(f"resnet50 HEAD_TRAINING losses {losses}, dense xy {dense}")
+    if run["state"].skipped_updates or launches["cc_label"] != steps or (
+            launches["vote_count"] != sum(rounds)):
+        raise AssertionError(f"resnet50 launches {launches}, rounds {rounds}, skipped "
+                             f"{run['state'].skipped_updates}")
+    del run, net, keep
+    # Two runs of one step differ in the gradients' last bits on the card (the
+    # bilinear upsampling's backward adds with atomics), which resnet50's
+    # train-mode backward amplifies past atol 2e-4 (2.2e-4 and 2.4e-4 on an
+    # H100 in runs whose kernel outputs were equal): the gradients are held
+    # in L2 per tensor, as `train_cpu` holds the card against the CPU.
+    phase_train_kernels(dev, phase="train_encoders_kernels", seed=17, grads_l2=2e-3,
+                        ENCODER="resnet50")
+
+    with tempfile.TemporaryDirectory(prefix="fpcnn_train_r50_") as tmp:
+        old_logs = os.environ.get("LOGS")
+        os.environ["LOGS"] = tmp
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            state, run_dir, probe = run_train_cli(
+                ["-e", "SMOKE_R50", "--preset", "HEAD_TRAINING", "--synthetic", "3",
+                 "--IMAGE_HEIGHT", str(H), "--IMAGE_WIDTH", str(W), "--BATCH_SIZE", "3",
+                 "--SELECTED_CLASSES", *C.HParams().SELECTED_CLASSES, "--NUM_WORKERS", "2",
+                 "--epochs", "1", "--ENCODER", "resnet50",
+                 "--bank_pool_dir", f"{tmp}/banks", "--no_tb", "--device", dev.type])
+            cli_launches = kernels.launch_counts()
+            encoder = state.net.encoder
+            hp = json.loads((run_dir / "HPARAM.json").read_text())
+        finally:
+            if old_logs is None:
+                os.environ.pop("LOGS", None)
+            else:
+                os.environ["LOGS"] = old_logs
+    if (hp["ENCODER"] != "resnet50" or len(encoder.layer3) != 6
+            or not isinstance(encoder.layer3[0], BottleneckBlock)):
+        raise AssertionError(f"the train CLI built {encoder.encoder_name}")
+    cli_losses = [v for _, m, _ in probe.logged for k, v in m.items() if "loss" in k]
+    if (state.step != 1 or not cli_losses or not all(map(math.isfinite, cli_losses))
+            or cli_launches["cc_label"] != 1 + probe.eval_steps):
+        raise AssertionError(f"train CLI: step {state.step}, launches {cli_launches}, "
+                             f"losses {cli_losses}")
+    emit("train_encoders", card=smi, encoder="resnet50", hw=[H, W], batch=3, steps=steps,
+         total_loss=losses, dense_xy_loss=dense, vote_rounds=rounds, launches=launches,
+         launches_per_step={k: v / steps for k, v in launches.items()},
+         ms_per_step_median=statistics.median(step_ms[1:]), ms_per_step=step_ms,
+         voting_ms=vote_ms, images_per_s=3e3 / statistics.median(step_ms[1:]),
+         train_cli=dict(epochs=1, train_steps=state.step, eval_steps=probe.eval_steps,
+                        launches=cli_launches, encoder=encoder.encoder_name))
+    return {k: launches[k] + cli_launches[k] for k in launches}
+
+
 def deterministic_caller_order_check():
     """Run as `chip_smoke.py --deterministic-caller-order-check`, in a fresh
     process: the network with seeded random weights at batch 2, 480x640,
@@ -2183,6 +2510,10 @@ def main():
     train_cli_launches = phase_train_cli(dev, smi)
     staged_launches = phase_train_staged(dev, smi)
     phase_network_precision(dev, server, smi)
+    new_paths = {"serve_encoders": phase_serve_encoders(dev, smi, server),
+                 "serve_soft": phase_serve_soft(dev, smi),
+                 "voting_vp": phase_voting_vp(dev, smi),
+                 "train_encoders": phase_train_encoders(dev, smi)}
     for k in kernels:
         name = k["name"]
         k["launches_by_path"] = {"serve": launches[name],
@@ -2191,7 +2522,9 @@ def main():
                                  "probe": probe_launches[name],
                                  "train": train_launches[name],
                                  "train_cli": train_cli_launches[name],
-                                 "train_staged": staged_launches[name]}
+                                 "train_staged": staged_launches[name],
+                                 **{path: counts.get(name, 0)
+                                    for path, counts in new_paths.items()}}
         k["at_other_shapes"] = [dict(what=what, **{f: v[f] for f in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by")})
             for what, v in other_times.items() if v.get("kernel") == name]

@@ -121,7 +121,7 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
                     raw[metric][c].append(values[sel])
         stats["frames"] += n_real
         stats["batches"] += 1
-        stats["vote_rounds"].append(agg["vote_rounds"])
+        stats["vote_rounds"].append(agg.get("vote_rounds"))  # None: soft voting
         if stats["batches"] == 1:
             stats["first_batch_frames"] = n_real
             stats["first_batch_seconds"] = time.perf_counter() - t0
@@ -253,19 +253,19 @@ def scene_source(hp, args):
 
 
 def build_network(hp, device):
-    """The network on `device`, with the weights of `hp.CHECKPOINT` (an npz
-    snapshot, a reference torch checkpoint or a full checkpoint of the
-    port's trainer, `train.checkpoint.load_weights`) or random ones from
-    seed 0. Returns (net, hp with the checkpoint's arch fields)."""
+    """The network on `device`, its encoder `hp.ENCODER` after the
+    checkpoint's arch fields are merged, with the weights of
+    `hp.CHECKPOINT` (an npz snapshot, a reference torch checkpoint or a full
+    checkpoint of the port's trainer, `train.checkpoint.load_weights`) or
+    random ones from seed 0. Returns (net, hp with the checkpoint's arch
+    fields)."""
     from fastposecnn_tpu_torch.models import PoseRegressorNet
     from fastposecnn_tpu_torch.models.weights import init_random_
     from fastposecnn_tpu_torch.train.checkpoint import load_weights, merge_arch_from_any
 
     if hp.CHECKPOINT:
         hp = merge_arch_from_any(hp.CHECKPOINT, hp)
-    if hp.ENCODER != "resnet18":
-        raise NotImplementedError(f"ENCODER={hp.ENCODER!r}: only resnet18 is ported")
-    net = PoseRegressorNet(num_classes=hp.num_classes)
+    net = PoseRegressorNet(num_classes=hp.num_classes, encoder_name=hp.ENCODER)
     if hp.CHECKPOINT:
         hp = load_weights(net, hp.CHECKPOINT, hp)
     else:

@@ -285,5 +285,11 @@ def pipeline_config_from(hp: HParams, impl: Optional[str] = None):
         hv_adaptive=hp.HV_ADAPTIVE,
         hv_implementation=hp.HV_IMPLEMENTATION,
         hv_refine=hp.HV_REFINE,
+        prun_method=None if hp.PRUN_METHOD in (None, "none") else hp.PRUN_METHOD,
+        prun_outlier_drop=hp.PRUN_OUTLIER_DROP,
+        prun_replacement=hp.PRUN_OUTLIER_REPLACEMENT_STYLE,
+        prun_zscore_threshold=hp.PRUN_ZSCORE_THRESHOLD,
+        iqr_multiplier=hp.IQR_MULTIPLIER,
+        hv_in_mask_multiplier=float(hp.HV_HYPOTHESIS_IN_MASK_MULTIPLIER),
         impl=impl,
     )

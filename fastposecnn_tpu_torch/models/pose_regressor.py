@@ -15,6 +15,9 @@ in channels [c*k, (c+1)*k)):
   z          [B, C-1, H, W]      translation channel 3k+2 (log-depth)
   scales     [B, 3(C-1), H, W]
 
+`network_from_hparams(hp)` builds the network an hparams set names:
+`hp.ENCODER`, `hp.num_classes` and the two head bias inits.
+
 `z_bias_init` and `scales_bias_init` are the constant biases that
 `models.weights.init_random_` gives the translation head's log-z channels
 (j % 3 == 2) and every scales channel (`HEAD_Z_BIAS_INIT`,
@@ -39,17 +42,19 @@ DECODERS = ("mask", "rotation", "translation", "scales")
 
 
 class PoseRegressorNet(nn.Module):
-    """ResNet18 encoder, FPN decoders of 256 pyramid and 128 segmentation
-    channels (dropout 0.2), heads upsampling x4: the reference's sizes."""
+    """The encoder `encoder_name` (resnet18, resnet34 or resnet50; any other
+    name raises), FPN decoders of 256 pyramid and 128 segmentation channels
+    (dropout 0.2) fed the encoder's channels, heads upsampling x4: the
+    reference's sizes."""
 
-    def __init__(self, num_classes: int = 7, z_bias_init: float = 0.0,
-                 scales_bias_init: float = 0.0):
+    def __init__(self, num_classes: int = 7, encoder_name: str = "resnet18",
+                 z_bias_init: float = 0.0, scales_bias_init: float = 0.0):
         super().__init__()
         c = num_classes
         self.num_classes = c
         self.z_bias_init = z_bias_init
         self.scales_bias_init = scales_bias_init
-        self.encoder = ResNetEncoder()
+        self.encoder = ResNetEncoder(encoder_name)
         ec = self.encoder.out_channels
         self.mask_decoder = FPNDecoder(ec)
         self.rotation_decoder = FPNDecoder(ec)
@@ -103,3 +108,12 @@ class PoseRegressorNet(nn.Module):
             "z": xyz.index_select(1, self.z_index),
             "scales": scales,
         }
+
+
+def network_from_hparams(hp) -> PoseRegressorNet:
+    """The network of `hp`: its encoder `hp.ENCODER` (unknown names raise),
+    `hp.num_classes`, and the head biases `HEAD_Z_BIAS_INIT` and
+    `HEAD_SCALES_BIAS_INIT` that `weights.init_random_` gives."""
+    return PoseRegressorNet(hp.num_classes, encoder_name=hp.ENCODER,
+                            z_bias_init=hp.HEAD_Z_BIAS_INIT,
+                            scales_bias_init=hp.HEAD_SCALES_BIAS_INIT)

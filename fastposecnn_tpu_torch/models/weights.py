@@ -11,7 +11,9 @@ Conventions converted (the inverse of the JAX package's
   flax batch_stats mean/var           ->  torch running_mean/running_var
 The JAX stem kernel is (7, 7, 4, 64) with a zero alpha input channel; its
 input channels are sliced to 3. `models.resnet.BatchNorm` updates the
-running statistics as flax does in training.
+running statistics as flax does in training. The same rules cover every
+encoder (resnet18, resnet34, resnet50): the bottleneck's `conv3`/`bn3` map
+as `conv1`/`bn1` do.
 
 `from_jax_train_state` carries a whole JAX `TrainState` across: the same
 layout rules, applied to every params-shaped tree of the optimizer state

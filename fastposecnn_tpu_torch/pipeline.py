@@ -5,10 +5,12 @@ The stage gates (`perform_aggregation`, `perform_hough_voting`,
 `perform_rt_calculation`) are the JAX package's: under the MASK_TRAINING
 preset nothing runs after class compression, and neither kernel launches.
 
-`ransac` voting is ported with both samplers (`bbox`, `cdf`), both RANSAC
-schedules (single shot, and the adaptive loop of the EVALUATING preset) and
-both refinements (`dense`, `sampled`). `hv_implementation="soft"` is not
-ported and raises `NotImplementedError`.
+`stage_hough_voting` dispatches on `hv_implementation`, as the JAX stage
+does: `ransac` voting (kernel K2) with both samplers (`bbox`, `cdf`), both
+RANSAC schedules (single shot, and the adaptive loop of the EVALUATING
+preset) and both refinements (`dense`, `sampled`); or `soft` voting
+(`ops.voting_soft`: the cdf sampler, outlier pruning by `prun_*`, weighted
+mean; no kernel), which reads neither `hv_sampler` nor `hv_refine`.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from fastposecnn_tpu_torch import geometry
 from fastposecnn_tpu_torch.ops.aggregation import aggregate_instances
 from fastposecnn_tpu_torch.ops.class_compress import class_compress
 from fastposecnn_tpu_torch.ops.voting import VoteDraws, hough_vote
+from fastposecnn_tpu_torch.ops.voting_soft import soft_hough_vote
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +41,14 @@ class PipelineConfig:
     hv_adaptive: bool = True
     hv_sampler: str = "bbox"  # 'bbox' (one gather round) or 'cdf' (exact)
     hv_refine: str = "dense"  # 'dense' all-pixel LSQ | 'sampled'
-    hv_implementation: str = "ransac"
+    hv_implementation: str = "ransac"  # 'ransac' (kernel K2) or 'soft'
+    # soft voting's pruning (FPC/config.py:96-105)
+    prun_method: Optional[str] = "iqr"  # 'iqr', 'z-score' or None
+    prun_outlier_drop: bool = False
+    prun_replacement: str = "median"
+    prun_zscore_threshold: float = 1.0
+    iqr_multiplier: float = 1.5
+    hv_in_mask_multiplier: float = 3.0
     # None: kernels on CUDA tensors, plain versions on CPU tensors;
     # "reference": plain versions on either device.
     impl: Optional[str] = None
@@ -47,7 +57,7 @@ class PipelineConfig:
         ported = {
             "hv_sampler": (self.hv_sampler, ("bbox", "cdf")),
             "hv_refine": (self.hv_refine, ("dense", "sampled")),
-            "hv_implementation": (self.hv_implementation, ("ransac",)),
+            "hv_implementation": (self.hv_implementation, ("ransac", "soft")),
         }
         for name, (got, values) in ported.items():
             if got not in values:
@@ -69,6 +79,17 @@ def stage_hough_voting(aggregated: Dict[str, Any], config: PipelineConfig,
                        draws: Optional[VoteDraws] = None,
                        generator: Optional[torch.Generator] = None,
                        cpu_generator: Optional[torch.Generator] = None):
+    if config.hv_implementation == "soft":
+        return soft_hough_vote(
+            aggregated, max_points=config.max_points,
+            num_hypotheses=config.hv_num_hypotheses, draws=draws,
+            generator=generator, prun_method=config.prun_method,
+            prun_drop=config.prun_outlier_drop,
+            prun_replacement=config.prun_replacement,
+            zscore_threshold=config.prun_zscore_threshold,
+            iqr_multiplier=config.iqr_multiplier,
+            in_mask_multiplier=config.hv_in_mask_multiplier,
+        )
     return hough_vote(
         aggregated, max_points=config.max_points,
         round_hyp_num=config.hv_num_hypotheses,

@@ -3,13 +3,21 @@ counterpart of the JAX package's `__graft_entry__.entry()`).
 
     server = InferenceServer()            # seeded random weights, on CUDA
     mask, class_ids, xy, z, RT = server(image)   # image [B, 3, H, W] f32
+    server = InferenceServer("ckpt.npz", ENCODER="resnet50", HV_IMPLEMENTATION="soft")
 
+The hparams are the INFERENCE preset with the keyword overrides given (any
+field of `config.HParams`, as the JAX inference CLI's `--ENCODER`,
+`--HV_IMPLEMENTATION` and `--PRUN_*` flags), then a checkpoint's
+architecture fields (`ENCODER`, the classes, ...), which win.
 `weights` may be a state_dict of `PoseRegressorNet` (e.g. from
-`models.weights.from_jax_params`) or the path of a JAX npz checkpoint.
+`models.weights.from_jax_params`) or the path of any checkpoint
+`train.checkpoint.load_weights` reads: a JAX npz snapshot, a reference
+torch checkpoint or a full checkpoint of the port's trainer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Mapping, Optional, Union
 
@@ -20,34 +28,30 @@ from fastposecnn_tpu_torch import config as C
 from fastposecnn_tpu_torch import constants
 from fastposecnn_tpu_torch.device import DeviceLike, full_float32, resolve_device
 from fastposecnn_tpu_torch.models import PoseRegressorNet
-from fastposecnn_tpu_torch.models.weights import (
-    from_jax_params,
-    init_random_,
-    load_npz_checkpoint,
-)
+from fastposecnn_tpu_torch.models.weights import init_random_
 from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
 from fastposecnn_tpu_torch.pipeline import run_pipeline
-
-
-def _state_dict(weights) -> Mapping[str, torch.Tensor]:
-    if isinstance(weights, (str, os.PathLike)):
-        flat, _ = load_npz_checkpoint(weights)
-        return from_jax_params(flat)
-    return weights
+from fastposecnn_tpu_torch.train.checkpoint import load_weights, merge_arch_from_any
 
 
 class InferenceServer:
     """Holds the network, the pipeline config and inv(K) on the device."""
 
     def __init__(self, weights: Optional[Union[str, os.PathLike, Mapping]] = None,
-                 device: DeviceLike = None, seed: int = 0):
+                 device: DeviceLike = None, seed: int = 0, **overrides):
         self.device = resolve_device(device)
-        self.hp = C.inference()
-        net = PoseRegressorNet(num_classes=self.hp.num_classes)
+        hp = dataclasses.replace(C.inference(), **overrides)
+        from_file = isinstance(weights, (str, os.PathLike))
+        if from_file:
+            hp = merge_arch_from_any(weights, hp)
+        self.hp = hp
+        net = PoseRegressorNet(num_classes=hp.num_classes, encoder_name=hp.ENCODER)
         if weights is None:
             init_random_(net, seed)
+        elif from_file:
+            load_weights(net, weights, hp)
         else:
-            net.load_state_dict(_state_dict(weights))
+            net.load_state_dict(weights)
         self.net = net.eval().to(self.device)
         self.config = C.pipeline_config_from(self.hp)
         self.config.check_ported()

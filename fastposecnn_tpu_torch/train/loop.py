@@ -35,7 +35,7 @@ from fastposecnn_tpu_torch import metrics as M
 from fastposecnn_tpu_torch.config import HParams, pipeline_config_from
 from fastposecnn_tpu_torch.data.loader import pad_batch
 from fastposecnn_tpu_torch.device import resolve_device
-from fastposecnn_tpu_torch.models import PoseRegressorNet
+from fastposecnn_tpu_torch.models import network_from_hparams
 from fastposecnn_tpu_torch.models.weights import init_random_
 from fastposecnn_tpu_torch.train import checkpoint as ckpt
 from fastposecnn_tpu_torch.train import optim
@@ -115,8 +115,7 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
     flog, handler = _file_logger(run_dir)
     try:
         flog.info("hparams: %s", hp.to_json().replace("\n", " "))
-        net = PoseRegressorNet(hp.num_classes, z_bias_init=hp.HEAD_Z_BIAS_INIT,
-                               scales_bias_init=hp.HEAD_SCALES_BIAS_INIT)
+        net = network_from_hparams(hp)
         net = init_random_(net, INIT_SEED).to(device)
         pcfg = pipeline_config_from(hp)
         optimizer = make_optimizer(hp, net)

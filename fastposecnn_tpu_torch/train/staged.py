@@ -66,7 +66,7 @@ from fastposecnn_tpu_torch.data.loader import (
 )
 from fastposecnn_tpu_torch.data.nocs import collate
 from fastposecnn_tpu_torch.device import resolve_device
-from fastposecnn_tpu_torch.models import PoseRegressorNet
+from fastposecnn_tpu_torch.models import network_from_hparams
 from fastposecnn_tpu_torch.models.weights import init_random_
 from fastposecnn_tpu_torch.train import checkpoint as ckpt
 from fastposecnn_tpu_torch.train import optim
@@ -325,8 +325,7 @@ def fit_staged(hp: HParams, train_ds, valid_ds, inv_intrinsics,
     try:
         flog.info("hparams: %s", hp.to_json().replace("\n", " "))
         flog.info("staged (device-resident) trainer")
-        net = PoseRegressorNet(hp.num_classes, z_bias_init=hp.HEAD_Z_BIAS_INIT,
-                               scales_bias_init=hp.HEAD_SCALES_BIAS_INIT)
+        net = network_from_hparams(hp)
         net = init_random_(net, INIT_SEED).to(device)
         pcfg = pipeline_config_from(hp)
         optimizer = make_optimizer(hp, net)

@@ -78,16 +78,17 @@ def test_inference_path_matches_jax(seed):
 
 
 def test_unported_options_raise():
-    """Soft voting is not ported (nor are unknown sampler or refinement
-    names); the adaptive loop, the cdf sampler and the sampled refinement
-    are, and pass the check."""
+    """Unknown voting implementations, sampler or refinement names raise;
+    soft voting, the adaptive loop, the cdf sampler and the sampled
+    refinement are ported and pass the check."""
     logits = {"mask": torch.zeros(1, 3, 32, 32)}
-    for field, value in (("hv_implementation", "soft"), ("hv_sampler", "grid"),
+    for field, value in (("hv_implementation", "pvnet"), ("hv_sampler", "grid"),
                          ("hv_refine", "none")):
         cfg = dataclasses.replace(PipelineConfig(hv_adaptive=False), **{field: value})
         with pytest.raises(NotImplementedError):
             run_pipeline(logits, cfg, torch.eye(3))
     PipelineConfig(hv_adaptive=True, hv_sampler="cdf", hv_refine="sampled").check_ported()
+    PipelineConfig(hv_implementation="soft").check_ported()
 
 
 def test_inference_preset_config():
@@ -111,7 +112,8 @@ def test_port_sources_import_no_jax():
     for module in ("losses.py", "train/optim.py", "train/task.py", "train/checkpoint.py",
                    "train/loop.py", "cli/train.py", "data/augment.py",
                    "native/augment_lib.py", "utils/tb.py", "data/png.py",
-                   "data/nocs_writer.py", "data/bank_pool.py", "train/staged.py"):
+                   "data/nocs_writer.py", "data/bank_pool.py", "train/staged.py",
+                   "ops/voting_soft.py", "ops/voting_vp.py", "models/resnet.py"):
         assert REPO / "fastposecnn_tpu_torch" / module in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -145,7 +147,8 @@ assert 'fastposecnn_tpu_torch.train.task' in sys.modules
 assert 'fastposecnn_tpu_torch.losses' in sys.modules
 for name in ('train.checkpoint', 'train.loop', 'cli.train', 'data.augment',
              'native.augment_lib', 'utils.tb', 'data.png', 'data.nocs_writer',
-             'data.bank_pool', 'train.staged'):
+             'data.bank_pool', 'train.staged', 'ops.voting_soft', 'ops.voting_vp',
+             'models.resnet'):
     assert 'fastposecnn_tpu_torch.' + name in sys.modules, name
 print('ok')
 """
