@@ -34,7 +34,10 @@ soft voting (K1 once a frame, K2 never; oracle centres within 1.5 px; the
 soft vote on the card against the CPU), holds vanishing-point voting on
 the card against the CPU, trains resnet50 at full width (HEAD_TRAINING
 steps, a step through the kernels against their plain versions, one
-epoch of the train CLI with `--ENCODER resnet50`), and
+epoch of the train CLI with `--ENCODER resnet50`), trains data-parallel
+(two ranks that share the card over gloo, each a process with its rows of
+a global batch of 4, held against the same 3 full-width HEAD_TRAINING
+steps in one process; one NCCL rank held against one step), and
 times the kernels at the served and the evaluated shapes (K1 beside its
 floor: its launches with empty kernels), their plain versions, the
 adaptive loop's host syncs, 30 served frames, and what a host sync right
@@ -2412,6 +2415,271 @@ def phase_train_encoders(dev, smi, steps=5):
     return {k: launches[k] + cli_launches[k] for k in launches}
 
 
+DP_RANKS = 2
+DP_STEPS = 3
+DP_DEADLINE_S = 360.0
+# The matched xy loss (a mean |dx| plus a mean |dy|; logged only, voting
+# passes no gradient) is held within 0.1 px plus 1e-3 of its value: the
+# voted centres may move by up to 0.05 px (ROADMAP.md C4), and with random
+# weights the dense refinement's least squares over an untrained field puts
+# the centres thousands of px off, ill-conditioned: the last bits in which
+# the ranks' fields differ from one process's (convolutions at batch 2 and
+# at 4; the global BatchNorm's E[x^2] - E[x]^2) moved the loss by 0.17 and
+# 0.53 px of 3745 (4.7e-5 and 1.4e-4 of it) on an H100.
+XY_BAND_LOSS, XY_RTOL_LOSS = 0.1, 1e-3
+
+
+def dp_setup(batch, seed):
+    """The `train_dp` phase's inputs, made on the host from `seed`: the
+    HEAD_TRAINING preset at full width (480x640, 7 classes, 16 slots, 1024
+    points, 128 hypotheses a round, adaptive) with a global batch of
+    `batch`, the global batch of synthetic scenes (numpy), the inverse
+    intrinsics, and each step's dropout masks and vote draws for the whole
+    batch."""
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch.constants import CAMERA_CLASSES, scaled_intrinsics
+    from fastposecnn_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from fastposecnn_tpu_torch.models import PoseRegressorNet
+    from fastposecnn_tpu_torch.ops.voting import VoteDraws
+
+    hp = C.head_training(IMAGE_HEIGHT=H, IMAGE_WIDTH=W, SELECTED_CLASSES=CAMERA_CLASSES[:7],
+                         BATCH_SIZE=batch)
+    scenes = SceneConfig(height=H, width=W, num_classes=7, max_instances=hp.MAX_INSTANCES,
+                         max_scene_instances=6)
+    data = make_batch(np.random.default_rng(seed), scenes, batch)
+    gen = torch.Generator().manual_seed(seed)
+    net = PoseRegressorNet(hp.num_classes)
+    n, p, h = hp.MAX_INSTANCES, hp.MAX_VOTE_POINTS, hp.HV_NUM_OF_HYPOTHESES
+    rounds = C.pipeline_config_from(hp).hv_max_iter
+    draws = [dict(keep=net.draw_dropout_keep(batch, "cpu", gen),
+                  draws=VoteDraws(ux=torch.rand((batch, n, p), generator=gen),
+                                  uy=torch.rand((batch, n, p), generator=gen),
+                                  pairs=torch.randint(0, p, (rounds, batch * n, h, 2),
+                                                      generator=gen)))
+             for _ in range(DP_STEPS)]
+    return hp, data, np.linalg.inv(scaled_intrinsics("CAMERA", H, W)), draws
+
+
+def dp_steps(hp, data, inv_k, draws, dev, seed, steps=DP_STEPS):
+    """`steps` train steps on `dev` from the weights of `seed` (inside a
+    process group: this rank's rows of `data`; ranks other than 0 start
+    from other weights and `replicate` makes them rank 0's), each with its
+    injected draws of the global batch. Returns (state, logs, host ms a
+    step, the collectives' ms, count and longest ms a step, launches)."""
+    import torch.distributed as dist
+
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch import kernels
+    from fastposecnn_tpu_torch.models import PoseRegressorNet
+    from fastposecnn_tpu_torch.models.weights import init_random_
+    from fastposecnn_tpu_torch.ops.voting import VoteDraws
+    from fastposecnn_tpu_torch.parallel import mesh
+    from fastposecnn_tpu_torch.train import task as T
+
+    net = init_random_(PoseRegressorNet(hp.num_classes), seed + mesh.rank()).to(dev)
+    opt = T.make_optimizer(hp, net)
+    state = mesh.replicate(T.create_train_state(net, opt))
+    step = T.make_train_step(net, opt, hp, C.pipeline_config_from(hp), inv_k, dev)
+    batch = T.upcast_batch(mesh.shard_batch(data), dev)
+    spans = []
+    all_reduce = dist.all_reduce
+
+    def timed_all_reduce(*args, **kwargs):  # the collective alone, the card idle
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        return out
+
+    logs, step_ms, coll_ms, coll_n, coll_max = [], [], [], [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    dist.all_reduce = timed_all_reduce
+    try:
+        for d in draws[:steps]:
+            dr = d["draws"]
+            on_dev = VoteDraws(ux=dr.ux.to(dev), uy=dr.uy.to(dev), pairs=dr.pairs.to(dev))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, lg = step(state, batch, seed=0,
+                             dropout_keep={k: v.to(dev) for k, v in d["keep"].items()},
+                             draws=on_dev)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            coll_ms.append(sum(spans) * 1e3)
+            coll_n.append(len(spans))
+            coll_max.append(max(spans, default=0.0) * 1e3)
+            spans.clear()
+            logs.append({k: float(v) for k, v in lg.items()})
+    finally:
+        dist.all_reduce = all_reduce
+    return state, logs, step_ms, (coll_ms, coll_n, coll_max), kernels.launch_counts()
+
+
+def state_digest(state) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    o = state.opt_state
+    for t in [*state.net.state_dict().values(),
+              *(d[k] for d in (o.mu, o.nu, o.slow) for k in sorted(d))]:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_dp_rank(hp, data, inv_k, draws, seed, device, steps):
+    """One rank of `train_dp` (a spawned process): gloo's all-reduce of a
+    CUDA tensor checked, then `dp_steps` on `device`. Rank 0 returns its
+    parameters and BatchNorm statistics on the host."""
+    from fastposecnn_tpu_torch.kernels.build import build_info, load_library
+    from fastposecnn_tpu_torch.parallel import mesh
+    from fastposecnn_tpu_torch.train import task as T
+
+    dev = mesh.use_rank_device(device)
+    probe = torch.full((2,), float(mesh.rank() + 1), device=dev)
+    summed = mesh.global_sum(probe)
+    want = float(sum(range(1, mesh.world_size() + 1)))
+    if summed.device != dev or summed.tolist() != [want, want]:
+        raise AssertionError(f"{mesh.backend()} all-reduce of a CUDA tensor gave {summed}")
+    load_library()
+    # The TF32 flags are the process's own: the step must enter full float32
+    # in this rank.
+    inside, original = [], T.full_float32
+
+    @contextlib.contextmanager
+    def recorded_float32():
+        with original():
+            inside.append((torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32))
+            yield
+
+    T.full_float32 = recorded_float32
+    try:
+        state, logs, step_ms, (coll_ms, coll_n, coll_max), launches = dp_steps(
+            hp, data, inv_k, draws, dev, seed, steps)
+    finally:
+        T.full_float32 = original
+    out = dict(rank=mesh.rank(), backend=mesh.backend(), device=str(dev),
+               library_reused=build_info.get("reused"), logs=logs, step_ms=step_ms,
+               collective_ms=coll_ms, collectives=coll_n, longest_collective_ms=coll_max,
+               launches=launches,
+               digest=state_digest(state), tf32_inside_steps=inside)
+    if mesh.rank() == 0:
+        out["state_dict"] = {k: v.detach().cpu() for k, v in state.net.state_dict().items()}
+    return out
+
+
+def phase_train_dp(dev, smi):
+    """Data-parallel training on the card: two ranks share it over gloo
+    (NCCL refuses two ranks of one communicator on one device), with CUDA
+    tensors, each a spawned process that takes its rows of a global batch
+    of 4 at full width (HEAD_TRAINING, 480x640, 7 classes, 16 slots, 1024
+    points, 128 hypotheses a round, adaptive), for 3 steps with injected
+    dropout masks and vote draws of the global batch; then the same 3 steps
+    in this process on the global batch. Held: each rank's logs (the global
+    batch's) against this process's, and rank 0's parameters and BatchNorm
+    statistics after the steps, at the golden tolerance (atol 2e-4, rtol
+    1e-4; the matched xy loss, logged only, within 0.1 px and 1e-3 of its
+    value: `XY_BAND_LOSS`), as `train_kernels` holds the card's runs; the rounds of every step equal; the ranks'
+    states bit-equal; K1 once a step and K2 once a round on each rank
+    (their CUDA builds, built once by `phase_build`). One NCCL rank then
+    takes the first two steps through the same collective path and is held
+    against this process's first two. Prints each rank's ms a step, this
+    process's in the same call, and the collectives' ms a step (each timed
+    alone, the card synchronised around it). The two ranks share one card:
+    their times are not a scaling result. Returns the launches of both
+    ranks."""
+    from fastposecnn_tpu_torch.parallel import mesh
+
+    hp, data, inv_k, draws = dp_setup(batch=4, seed=21)
+    seed = 22
+    phase_t0 = time.perf_counter()
+    ranks = mesh.launch(train_dp_rank, DP_RANKS, (hp, data, inv_k, draws, seed, "cuda:0",
+                                                 DP_STEPS),
+                        backend="gloo", deadline_s=DP_DEADLINE_S)
+    dp_seconds = time.perf_counter() - phase_t0
+    state, logs, step_ms, _, launches = dp_steps(hp, data, inv_k, draws, dev, seed)
+    single_sd = {k: v.detach().cpu() for k, v in state.net.state_dict().items()}
+    del state
+    t0 = time.perf_counter()
+    (nccl,) = mesh.launch(train_dp_rank, 1, (hp, data, inv_k, draws, seed, "cuda:0", 2),
+                          backend="nccl", deadline_s=DP_DEADLINE_S)
+    nccl_seconds = time.perf_counter() - t0
+    state2, first_logs, first_ms, _, _ = dp_steps(hp, data, inv_k, draws, dev, seed, steps=2)
+    first_sd = {k: v.detach().cpu() for k, v in state2.net.state_dict().items()}
+    del state2
+
+    worst = {}
+
+    def hold(what, got, want, band=0.0, rtol=1e-4):
+        if isinstance(got, float):
+            err, ok = abs(got - want), abs(got - want) <= band + 2e-4 + rtol * abs(want)
+        else:
+            err = float((got - want).abs().max())
+            ok = torch.allclose(got, want, atol=2e-4, rtol=1e-4)
+        worst[what.split(" ")[-1]] = max(worst.get(what.split(" ")[-1], 0.0), err)
+        if not ok:
+            raise AssertionError(f"{what}: {got if isinstance(got, float) else err} "
+                                 f"against {want if isinstance(want, float) else ''}")
+
+    def hold_logs(who, got_logs, want_logs):
+        for got, want in zip(got_logs, want_logs, strict=True):
+            if got["pose/vote_rounds"] != want["pose/vote_rounds"]:
+                raise AssertionError(f"{who}: rounds {got['pose/vote_rounds']} against "
+                                     f"{want['pose/vote_rounds']}")
+            for k, v in want.items():
+                if k == "xy/loss_xy":
+                    hold(f"{who} {k}", got[k], v, XY_BAND_LOSS, XY_RTOL_LOSS)
+                else:
+                    hold(f"{who} {k}", got[k], v)
+
+    def hold_state(what, got, want):
+        for k, v in want.items():
+            hold(f"{k} {what}", got[k].float(), v.float())
+
+    rounds = [int(lg["pose/vote_rounds"]) for lg in logs]
+    for r in ranks:
+        hold_logs(f"rank {r['rank']}", r["logs"], logs)
+        if (r["launches"]["cc_label"] != DP_STEPS
+                or r["launches"]["vote_count"] != sum(rounds)):
+            raise AssertionError(f"rank {r['rank']} launches {r['launches']}, rounds {rounds}")
+        if (r["backend"] != "gloo" or not r["library_reused"]
+                or r["tf32_inside_steps"] != [(False, False)] * DP_STEPS):
+            raise AssertionError(f"rank {r['rank']}: {r['backend']}, reused "
+                                 f"{r['library_reused']}, TF32 in its steps "
+                                 f"{r['tf32_inside_steps']}")
+    if len({r["digest"] for r in ranks}) != 1:
+        raise AssertionError("the ranks' states differ after the steps")
+    hold_state("params_and_batch_stats", ranks[0]["state_dict"], single_sd)
+    hold_logs("nccl", nccl["logs"], first_logs)
+    hold_state("nccl_params_and_batch_stats", nccl["state_dict"], first_sd)
+    if nccl["backend"] != "nccl" or nccl["launches"]["cc_label"] != 2:
+        raise AssertionError(f"NCCL rank: {nccl['backend']}, launches {nccl['launches']}")
+    both = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    emit("train_dp", card=smi, ranks=DP_RANKS, backend="gloo", shared_card=True,
+         gloo_all_reduces_cuda_tensors=True,
+         hw=[H, W], global_batch=4, batch_per_rank=2, steps=DP_STEPS, classes=7,
+         tolerance=dict(logs_params_batch_stats=dict(atol=2e-4, rtol=1e-4),
+                        xy_loss=dict(atol=2e-4 + XY_BAND_LOSS, rtol=XY_RTOL_LOSS),
+                        rounds="exact", ranks_states="bit-equal"),
+         max_abs_diff=worst, vote_rounds=rounds,
+         launches_per_rank={r["rank"]: r["launches"] for r in ranks},
+         ms_per_step_per_rank={r["rank"]: r["step_ms"] for r in ranks},
+         collective_ms_per_step_per_rank={r["rank"]: r["collective_ms"] for r in ranks},
+         longest_collective_ms_per_step_per_rank={r["rank"]: r["longest_collective_ms"]
+                                                  for r in ranks},
+         collectives_per_step=ranks[0]["collectives"],
+         single_process=dict(batch=4, ms_per_step=step_ms, launches=launches),
+         total_loss=[lg["pose/total_loss"] for lg in logs],
+         launch_seconds=dp_seconds,
+         nccl=dict(ranks=1, steps=2, seconds=nccl_seconds, ms_per_step=nccl["step_ms"],
+                   collective_ms=nccl["collective_ms"], collectives=nccl["collectives"],
+                   longest_collective_ms=nccl["longest_collective_ms"],
+                   launches=nccl["launches"], single_process_ms=first_ms))
+    return both
+
+
 def deterministic_caller_order_check():
     """Run as `chip_smoke.py --deterministic-caller-order-check`, in a fresh
     process: the network with seeded random weights at batch 2, 480x640,
@@ -2513,7 +2781,8 @@ def main():
     new_paths = {"serve_encoders": phase_serve_encoders(dev, smi, server),
                  "serve_soft": phase_serve_soft(dev, smi),
                  "voting_vp": phase_voting_vp(dev, smi),
-                 "train_encoders": phase_train_encoders(dev, smi)}
+                 "train_encoders": phase_train_encoders(dev, smi),
+                 "train_dp": phase_train_dp(dev, smi)}
     for k in kernels:
         name = k["name"]
         k["launches_by_path"] = {"serve": launches[name],

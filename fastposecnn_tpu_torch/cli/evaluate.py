@@ -18,8 +18,17 @@ classes as columns) and JSON with numpy alone.
 The scenes are a NOCS folder (`--valid_dir`, read by `data.nocs.NOCSDataset`
 as the JAX CLI reads it) or the in-memory synthetic source (`--synthetic N`,
 the same scenes as the JAX CLI writes and reads back for the same seed);
-the AP plot and the xlsx table, `--draw` and data-parallel evaluation are
-not ported.
+the AP plot and the xlsx table and `--draw` are not ported.
+
+`--NUM_DEVICES N` runs phase A data-parallel, as the JAX CLI does over a
+mesh: N ranks (`parallel.mesh.launch`; one a card over NCCL, or N gloo
+processes with `--device cpu`) each load and run their rows of every
+batch of `BATCH_SIZE`, with the vote draws of the whole batch, and the
+matched values are gathered in the single-device order, so the raw errors
+equal the single-device ones. With fewer cards than N, or a `BATCH_SIZE`
+that N does not divide, it warns and evaluates on one device, as the JAX
+CLI does; `--NUM_TP` above 1 is refused (tensor parallelism is not
+ported).
 """
 
 from __future__ import annotations
@@ -38,7 +47,8 @@ from fastposecnn_tpu_torch import constants, eval_host
 from fastposecnn_tpu_torch import pipeline as P
 from fastposecnn_tpu_torch.device import full_float32, resolve_device
 from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
-from fastposecnn_tpu_torch.utils.timer import StageTimer, report_runtime
+from fastposecnn_tpu_torch.parallel import mesh
+from fastposecnn_tpu_torch.utils.timer import StageTimer
 
 APS_NUM_OF_POINTS = 50
 STAGES = ("model", "class_compress", "aggregation", "hough_voting",
@@ -74,11 +84,15 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
     Batch `bi` votes with `draws_for(bi)` when given, else with fresh draws
     from `generator` and `cpu_generator`. The CC kernel's error flag is
     read once a batch, after the matched values are read back, and raises
-    if set. Returns (raw errors
+    if set. Inside a process group (`parallel.mesh`), `batches` are this
+    rank's rows of each batch (None where it has none), the draws are the
+    whole batch's, a flag set on any rank raises on every rank, and the
+    matched values of the ranks are gathered in row order before the
+    errors, which every rank computes alike. Returns (raw errors
     {metric: {class: float64 array}}, stats {frames, batches, vote_rounds
     per batch, seconds, and the first batch's frames and seconds, which
     include cuDNN timing its algorithms for the batch's shape})."""
-    from fastposecnn_tpu_torch.data.loader import pad_batch, upcast_batch
+    from fastposecnn_tpu_torch.data.loader import empty_batch, pad_batch, upcast_batch
     from fastposecnn_tpu_torch.ops.matching import gather_matched, match_instances
 
     if timers is None:
@@ -87,10 +101,13 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
     raw = {m: {c: [] for c in range(1, num_classes)} for m in METRICS}
     stats = {"frames": 0, "batches": 0, "vote_rounds": []}
     t0 = time.perf_counter()
+    ranks = mesh.world_size()
     for bi, batch in enumerate(batches):
         if batch is None:
-            continue
-        batch, n_real = pad_batch(batch, hp.BATCH_SIZE)
+            if ranks == 1:
+                continue
+            batch = empty_batch(hp.IMAGE_HEIGHT, hp.IMAGE_WIDTH, hp.MAX_INSTANCES)
+        batch, n_real = pad_batch(batch, hp.BATCH_SIZE // ranks)
         db = upcast_batch(batch, device)
         draws = draws_for(bi) if draws_for is not None else None
         with torch.inference_mode(), full_float32():
@@ -111,9 +128,21 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
                     agg, db["agg"], match,
                     keys=("quaternion", "scales", "z", "xy", "T", "R", "RT"))
         with timers["errors"].measure():
-            m = {k: v[:n_real].cpu().numpy() for k, v in matched.items()}
+            m = {k: v.cpu().numpy() for k, v in matched.items()}
+            real = np.arange(len(m["valid"])) < n_real
             # After the readback above, which waited for the batch.
-            raise_on_error_flag(agg["cc_error"])
+            cc_error = agg["cc_error"]
+            if ranks > 1:
+                if cc_error is not None:
+                    cc_error = mesh.global_sum(cc_error)
+                parts = mesh.all_gather_object((m, real))
+                m = {k: np.concatenate([part[k] for part, _ in parts]) for k in m}
+                real = np.concatenate([r for _, r in parts])
+                n_real = int(real.sum())
+            raise_on_error_flag(cc_error)
+            if not n_real:  # every sample of the batch rejected
+                continue
+            m = {k: v[real] for k, v in m.items()}
             errors = instance_errors(m, fpc_compat_iou)
             for c in range(1, num_classes):
                 sel = m["valid"] & (m["class_ids"] == c)
@@ -278,6 +307,58 @@ def inverse_intrinsics(hp, device) -> torch.Tensor:
     return torch.tensor(np.linalg.inv(K), dtype=torch.float32, device=device)
 
 
+def data_parallel_ranks(hp, device) -> int:
+    """The ranks of a data-parallel phase A (`--NUM_DEVICES`), or 1 with the
+    JAX CLI's warnings: fewer cards than asked, or a `BATCH_SIZE` that the
+    ranks do not divide. `--NUM_TP` above 1 raises."""
+    if hp.NUM_TP > 1:
+        mesh.make_mesh(hp.NUM_DEVICES, tp=hp.NUM_TP)  # raises: not ported
+    n = hp.NUM_DEVICES
+    if n <= 1:
+        return 1
+    if device.type == "cuda" and torch.cuda.device_count() < n:
+        print(f"WARNING: --NUM_DEVICES={n} requested but only "
+              f"{torch.cuda.device_count()} device(s) visible — falling back to "
+              "single-device evaluation.")
+        return 1
+    if hp.BATCH_SIZE % n:
+        print(f"WARNING: --NUM_DEVICES={n} requested but BATCH_SIZE={hp.BATCH_SIZE} "
+              f"is not divisible by dp={n} — falling back to single-device "
+              f"evaluation. Pick a BATCH_SIZE that is a multiple of {n}.")
+        return 1
+    return n
+
+
+def phase_a(hp, args, device):
+    """Phase A on this rank (on its rows of each batch inside a process
+    group): the scenes, the network and `collect_raw_errors` with the
+    `--vote_seed` generators. Returns (raw errors, stats with the scene
+    seconds, each stage's ms and their report)."""
+    from fastposecnn_tpu_torch.data.loader import iterate_batches
+
+    device = mesh.use_rank_device(device)
+    t0 = time.perf_counter()
+    source = scene_source(hp, args)
+    scene_seconds = time.perf_counter() - t0
+    net, hp = build_network(hp, device)
+    pcfg = C.pipeline_config_from(hp)
+    pcfg.check_ported()
+    timers = {name: StageTimer(name, device) for name in STAGES}
+    raw, stats = collect_raw_errors(
+        hp, iterate_batches(source, hp.BATCH_SIZE, shard=(mesh.rank(), mesh.world_size())),
+        net, pcfg, inverse_intrinsics(hp, device), device,
+        fpc_compat_iou=args.fpc_compat_iou,
+        generator=torch.Generator(device).manual_seed(args.vote_seed),
+        cpu_generator=torch.Generator().manual_seed(args.vote_seed),
+        timers=timers)
+    for t in timers.values():
+        t.flush()
+    stats.update(scene_seconds=scene_seconds,
+                 stage_ms={k: t.average for k, t in timers.items()},
+                 stage_report="\n".join(t.report() for t in timers.values() if t.times_ms))
+    return raw, stats
+
+
 def main(argv=None) -> dict:
     """Run both phases; returns a summary (phase A's stats and stage ms when
     it ran, the mean table APs, the pooled rotation means)."""
@@ -296,22 +377,14 @@ def main(argv=None) -> dict:
     summary: dict = {"device": str(device)}
 
     if not results_path.exists():
-        from fastposecnn_tpu_torch.data.loader import iterate_batches
-
-        t0 = time.perf_counter()
-        source = scene_source(hp, args)
-        summary["scene_seconds"] = time.perf_counter() - t0
-        net, hp = build_network(hp, device)
-        pcfg = C.pipeline_config_from(hp)
-        pcfg.check_ported()
-        timers = {name: StageTimer(name, device) for name in STAGES}
-        raw, stats = collect_raw_errors(
-            hp, iterate_batches(source, hp.BATCH_SIZE), net, pcfg,
-            inverse_intrinsics(hp, device), device,
-            fpc_compat_iou=args.fpc_compat_iou,
-            generator=torch.Generator(device).manual_seed(args.vote_seed),
-            cpu_generator=torch.Generator().manual_seed(args.vote_seed),
-            timers=timers)
+        ranks = data_parallel_ranks(hp, device)
+        if ranks > 1:
+            print(f"phase A: data-parallel over {mesh.make_mesh(ranks).shape} mesh")
+            raw, stats = mesh.launch(phase_a, ranks, (hp, args, device),
+                                     backend=mesh.default_backend(device),
+                                     threads=mesh.cpu_threads(ranks, device))[0]
+        else:
+            raw, stats = phase_a(hp, args, device)
         np.savez(results_path,
                  **{f"{m}/{c}": v for m, per in raw.items() for c, v in per.items()})
         fps = stats["frames"] / stats["seconds"] if stats["seconds"] > 0 else 0.0
@@ -324,9 +397,8 @@ def main(argv=None) -> dict:
         print(f"phase A: {stats['frames']} frames in {stats['batches']} batches "
               f"of {hp.BATCH_SIZE} on {device}, {stats['seconds']:.2f} s, "
               f"{fps:.2f} frames/s{after}; vote rounds per batch {stats['vote_rounds']}")
-        report_runtime(timers)
-        summary.update(stats, frames_per_s=fps, frames_per_s_after_first_batch=fps_after,
-                       stage_ms={k: t.average for k, t in timers.items()})
+        print(stats.pop("stage_report"))
+        summary.update(stats, frames_per_s=fps, frames_per_s_after_first_batch=fps_after)
     else:
         print(f"phase A skipped: {results_path} exists")
         summary["phase_a_skipped"] = True

@@ -5,7 +5,7 @@ unless `--device cpu` is given.
         (--synthetic N | --train_dir D --valid_dir D) --epochs 2 [--no_tb]
         [--stage_on_device [--restage_every K] [--snapshot_npz F]
          [--bank_pool_dir D]] [--resume checkpoints/last|snap.npz]
-        [--no_augment] [--device cpu] [--HPARAM value ...]
+        [--no_augment] [--device cpu] [--NUM_DEVICES N] [--HPARAM value ...]
 
 Every `HParams` field is a `--FIELD` flag (FPC/train.py:102-112). The data
 are NOCS folders (`data.nocs.NOCSDataset`, PNGs decoded without an image
@@ -24,11 +24,17 @@ trainer (`train/staged.py`), and with `--restage_every K` and
 `--synthetic` it re-stages every K epochs onto the next bank of a rotating
 pool (`data/bank_pool.py`) that a background renderer fills, with the
 staged plateau defaults (`config.staged_plateau_defaults`) unless
---PLATEAU_PATIENCE/--PLATEAU_FACTOR are given. The staged trainer uses one
-device and only warns about `--NUM_DEVICES`; the streaming trainer refuses
-`--NUM_DEVICES` above 1 (data-parallel training is not ported, ROADMAP.md
-queue A item 13). Pretrained ImageNet encoder weights are not in the repo:
-training starts from seeded random weights or from `--resume`.
+--PLATEAU_PATIENCE/--PLATEAU_FACTOR are given. Pretrained ImageNet encoder
+weights are not in the repo: training starts from seeded random weights or
+from `--resume`.
+
+`--NUM_DEVICES N` trains the streaming trainer data-parallel over N ranks
+(`parallel.mesh.launch`): one a card over NCCL, or, with `--device cpu`,
+N gloo processes. Each rank loads its rows of every global batch of
+`BATCH_SIZE` (which N must divide); rank 0 writes the run dir. With fewer
+cards than N it trains on one and says so, as the JAX loop builds no mesh
+then. The staged trainer uses one device and only warns about
+`--NUM_DEVICES`. `--NUM_TP` above 1 (tensor parallelism) is refused.
 """
 
 from __future__ import annotations
@@ -41,10 +47,12 @@ import shutil
 import tempfile
 
 import numpy as np
+import torch
 
 from fastposecnn_tpu_torch import config as C
 from fastposecnn_tpu_torch import constants
 from fastposecnn_tpu_torch.device import resolve_device
+from fastposecnn_tpu_torch.parallel import mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -144,6 +152,54 @@ def datasets(hp, args, train_dir, valid_dir):
     return train, valid
 
 
+def data_parallel_ranks(requested: int, device) -> int:
+    """The ranks `--NUM_DEVICES` gets: as many as asked on the CPU (gloo
+    processes) or one a card; with fewer cards than asked, one (a warning
+    says so, as the JAX loop trains without a mesh then)."""
+    if requested <= 1:
+        return 1
+    if device.type == "cuda" and torch.cuda.device_count() < requested:
+        print(f"WARNING: --NUM_DEVICES={requested} requested but only "
+              f"{torch.cuda.device_count()} card(s) visible; training on a single "
+              "device.", flush=True)
+        return 1
+    return requested
+
+
+def _streaming_rank(hp, args, train_dir, valid_dir, inv_k, device, built=None):
+    """The streaming trainer on this rank (the datasets `built`, else read
+    from the folders): its rows of every global batch. Returns (final
+    TrainState, run dir); inside a process group, rank 0's state moved to
+    the CPU and None on the other ranks."""
+    from fastposecnn_tpu_torch.data.loader import PrefetchLoader
+    from fastposecnn_tpu_torch.train.loop import fit
+
+    train_ds, valid_ds = built or datasets(hp, args, train_dir, valid_dir)
+    device = mesh.use_rank_device(device)
+    shard = (mesh.rank(), mesh.world_size())
+    train_loader = PrefetchLoader(train_ds, hp.BATCH_SIZE, shuffle=not hp.DETERMINISTIC,
+                                  num_workers=hp.NUM_WORKERS, shard=shard)
+    valid_loader = PrefetchLoader(valid_ds, hp.BATCH_SIZE, shuffle=False,
+                                  num_workers=hp.NUM_WORKERS, shard=shard)
+    state, run_dir = fit(hp, train_loader, valid_loader, inv_k, device=device,
+                         enable_tb=not args.no_tb, num_epochs=args.epochs,
+                         resume_from=args.resume)
+    if mesh.active():
+        state = _on_cpu(state) if mesh.rank() == 0 else None
+    return state, run_dir
+
+
+def _on_cpu(state):
+    """A train state with its network and optimizer tensors on the CPU (to
+    leave its rank's process)."""
+    import dataclasses
+
+    opt = state.opt_state
+    return dataclasses.replace(state, net=state.net.cpu(), opt_state=dataclasses.replace(
+        opt, **{f.name: {k: t.cpu() for k, t in getattr(opt, f.name).items()}
+                for f in dataclasses.fields(opt) if isinstance(getattr(opt, f.name), dict)}))
+
+
 def main(argv=None):
     """Parse, build the datasets, and train with `train.loop.fit` or, with
     --stage_on_device, `train.staged.fit_staged`. Returns (final TrainState,
@@ -154,11 +210,15 @@ def main(argv=None):
     if args.stage_on_device and args.restage_every:
         hp = C.staged_plateau_defaults(hp, patience_explicit=args.PLATEAU_PATIENCE is not None,
                                        factor_explicit=args.PLATEAU_FACTOR is not None)
-    if hp.NUM_DEVICES > 1 and not args.stage_on_device:
+    if hp.NUM_TP > 1:
         raise NotImplementedError(
-            f"--NUM_DEVICES {hp.NUM_DEVICES}: data-parallel training is not ported "
-            "(ROADMAP.md queue A item 13); the port trains on one device")
+            f"--NUM_TP {hp.NUM_TP}: tensor parallelism is not ported "
+            "(ROADMAP.md queue A item 13); the port trains data-parallel only")
     device = resolve_device(args.device)
+    ranks = 1 if args.stage_on_device else data_parallel_ranks(hp.NUM_DEVICES, device)
+    if hp.BATCH_SIZE % ranks:
+        raise ValueError(f"BATCH_SIZE={hp.BATCH_SIZE} does not split over --NUM_DEVICES "
+                         f"{ranks} ranks")
     if hp.DETERMINISTIC:  # FPC/train.py:125-137
         np.random.seed(125)
 
@@ -202,17 +262,14 @@ def main(argv=None):
                 restage_every=args.restage_every, regen_fn=regen,
                 snapshot_npz=args.snapshot_npz)
         else:
-            from fastposecnn_tpu_torch.data.loader import PrefetchLoader
-            from fastposecnn_tpu_torch.train.loop import fit
-
-            train_loader = PrefetchLoader(train_ds, hp.BATCH_SIZE,
-                                          shuffle=not hp.DETERMINISTIC,
-                                          num_workers=hp.NUM_WORKERS)
-            valid_loader = PrefetchLoader(valid_ds, hp.BATCH_SIZE, shuffle=False,
-                                          num_workers=hp.NUM_WORKERS)
-            state, run_dir = fit(hp, train_loader, valid_loader, inv_k, device=device,
-                                 enable_tb=not args.no_tb, num_epochs=args.epochs,
-                                 resume_from=args.resume)
+            if ranks > 1:
+                state, run_dir = mesh.launch(
+                    _streaming_rank, ranks, (hp, args, train_dir, valid_dir, inv_k, device),
+                    backend=mesh.default_backend(device),
+                    threads=mesh.cpu_threads(ranks, device))[0]
+            else:
+                state, run_dir = _streaming_rank(hp, args, train_dir, valid_dir, inv_k,
+                                                 device, (train_ds, valid_ds))
     finally:
         # Also after a failed fit: the in-flight render would go on using the
         # host's CPU and the pool's disk.

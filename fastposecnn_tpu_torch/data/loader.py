@@ -13,6 +13,16 @@ batch whose samples were all rejected comes out as None. A worker's
 exception is raised in the consumer, and a consumer that stops iterating
 stops the producer and its pool. Workers touch numpy only, never CUDA, so
 forking them after the card is initialised is safe.
+
+With `shard=(rank, ranks)` (data-parallel training, `parallel.mesh`) the
+loader walks the same global batches of `batch_size` samples, in the same
+shuffled order, and loads only this rank's rows of each: rows
+[rank b, (rank + 1) b) with b = batch_size / ranks, fewer or none in a short
+last batch. A sample's augmentation draws depend on its index and the
+epoch only, so the ranks' batches, each padded to b (`pad_batch`, with
+`empty_batch` for a rank with no row), concatenate to one process's padded
+batch bit for bit. A rejected sample's row becomes a padding row where it
+stands; one process would close the gap and pad at the end.
 """
 
 from __future__ import annotations
@@ -25,7 +35,12 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from fastposecnn_tpu_torch.data.nocs import IMAGENET_MEAN, IMAGENET_STD, collate
+from fastposecnn_tpu_torch.data.nocs import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    collate,
+    empty_instances,
+)
 
 
 # Process-backend worker state: the dataset reaches each worker once, through
@@ -59,9 +74,12 @@ def _worker_stage_get(args):
 class PrefetchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, seed: int = 0, prefetch: int = 2,
-                 drop_last: bool = False, backend: str = "thread"):
+                 drop_last: bool = False, backend: str = "thread",
+                 shard: Tuple[int, int] = (0, 1)):
         if backend not in ("thread", "process"):
             raise ValueError(f"unknown loader backend {backend!r}")
+        if batch_size % shard[1]:
+            raise ValueError(f"a batch of {batch_size} does not split over {shard[1]} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -70,6 +88,7 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.backend = backend
+        self.shard = shard
         self.epoch = 0
 
     def __len__(self):
@@ -82,11 +101,13 @@ class PrefetchLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        rank, ranks = self.shard
+        local = self.batch_size // ranks
         for s in range(0, len(idx), self.batch_size):
             chunk = idx[s:s + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 return
-            yield chunk
+            yield chunk[rank * local:(rank + 1) * local]
 
     def __iter__(self) -> Iterator[Optional[dict]]:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -151,12 +172,18 @@ class PrefetchLoader:
             self.epoch += 1
 
 
-def iterate_batches(dataset, batch_size: int) -> Iterator[Optional[dict]]:
+def iterate_batches(dataset, batch_size: int,
+                    shard: Tuple[int, int] = (0, 1)) -> Iterator[Optional[dict]]:
     """Collated batches of `batch_size` samples in order, the last one
-    short; a batch whose samples were all rejected is None."""
+    short; a batch whose samples were all rejected is None. With `shard`
+    (rank, ranks), this rank's rows of each, as `PrefetchLoader` takes
+    them."""
+    rank, ranks = shard
+    local = batch_size // ranks
     for start in range(0, len(dataset), batch_size):
-        stop = min(start + batch_size, len(dataset))
-        yield collate([dataset[i] for i in range(start, stop)])
+        rows = range(start, min(start + batch_size, len(dataset)))[
+            rank * local:(rank + 1) * local]
+        yield collate([dataset[i] for i in rows])
 
 
 def pad_batch(batch: dict, batch_size: int) -> Tuple[dict, int]:
@@ -181,6 +208,15 @@ def pad_batch(batch: dict, batch_size: int) -> Tuple[dict, int]:
                                         np.zeros((batch_size - n,), np.float32)]),
     }
     return out, n
+
+
+def empty_batch(height: int, width: int, max_instances: int) -> dict:
+    """A batch of no samples in the folder dataset's layout, for `pad_batch`
+    to fill with zero samples."""
+    return {"image": np.zeros((0, height, width, 3), np.uint8),
+            "mask": np.zeros((0, height, width), np.uint8),
+            "agg": {k: np.zeros((0,) + v.shape, v.dtype) for k, v in
+                    empty_instances(max_instances, height, width).items()}}
 
 
 def _on_device(values, device) -> torch.Tensor:

@@ -140,19 +140,7 @@ class _NOCSSamples:
 
         g = self.max_instances
         h, w = mask_raw.shape
-        agg = {
-            "class_ids": np.zeros((g,), np.int32),
-            "symmetric_ids": np.zeros((g,), np.int32),
-            "instance_masks": np.zeros((g, h, w), np.uint8),
-            "quaternion": np.zeros((g, 4), np.float32),
-            "scales": np.zeros((g, 3), np.float32),
-            "xy": np.zeros((g, 2), np.float32),
-            "z": np.zeros((g,), np.float32),
-            "T": np.zeros((g, 3), np.float32),
-            "R": np.zeros((g, 3, 3), np.float32),
-            "RT": np.zeros((g, 4, 4), np.float32),
-            "valid": np.zeros((g,), bool),
-        }
+        agg = empty_instances(g, h, w)
         RTs = np.asarray(meta["RTs"], np.float64)
         quats = np.asarray(meta["quaternions"], np.float32)
         scales = np.asarray(meta["scales"], np.float32)
@@ -308,6 +296,23 @@ class CAMERADataset(NOCSDataset):
 class REALDataset(NOCSDataset):
     def __init__(self, dataset_dir, **kw):
         super().__init__(dataset_dir, dataset_name="REAL", **kw)
+
+
+def empty_instances(g: int, h: int, w: int) -> Dict[str, np.ndarray]:
+    """A sample's `g` GT instance slots, all empty."""
+    return {
+        "class_ids": np.zeros((g,), np.int32),
+        "symmetric_ids": np.zeros((g,), np.int32),
+        "instance_masks": np.zeros((g, h, w), np.uint8),
+        "quaternion": np.zeros((g, 4), np.float32),
+        "scales": np.zeros((g, 3), np.float32),
+        "xy": np.zeros((g, 2), np.float32),
+        "z": np.zeros((g,), np.float32),
+        "T": np.zeros((g, 3), np.float32),
+        "R": np.zeros((g, 3, 3), np.float32),
+        "RT": np.zeros((g, 4, 4), np.float32),
+        "valid": np.zeros((g,), bool),
+    }
 
 
 def collate(samples: Sequence[Optional[dict]]) -> Optional[Dict]:

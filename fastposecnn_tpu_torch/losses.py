@@ -11,16 +11,25 @@ outputs (`[B, C, H, W]`, per-class fields flat and class-major); the dense
 GT mask is `[B, H, W]`; matched payloads (`ops.matching.gather_matched`)
 hold `gt_<k>` / `pred_<k>` of shape [B, G, ...] plus `valid` and
 `symmetric_ids` [B, G].
+
+Inside a process group (`parallel.mesh`), every mean over the batch is the
+global batch's: a rank divides its own numerator by the global
+denominator (a count summed over the ranks without gradient, or its
+element count times the number of ranks), so each rank returns its share
+of the global loss, the shares sum to it, and the gradients summed over
+the ranks are its gradients. `has_data` is the global flag.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from fastposecnn_tpu_torch import geometry
+from fastposecnn_tpu_torch.parallel import mesh
 
 Tensor = torch.Tensor
 LossOut = Tuple[Tensor, Tensor]  # (scalar loss, has_data flag as float 0/1)
@@ -28,16 +37,26 @@ LossOut = Tuple[Tensor, Tensor]  # (scalar loss, has_data flag as float 0/1)
 
 def _masked_mean(x: Tensor, mask: Tensor) -> LossOut:
     mask = mask.to(x.dtype)
-    total = mask.sum()
+    total = mesh.global_sum(mask.sum())
     value = (x * mask).sum() / total.clamp_min(1.0)
     return value, (total > 0).to(x.dtype)
+
+
+def _mean(x: Tensor, dim=None) -> Tensor:
+    """The mean over `dim` (all axes when None), over the global batch when
+    `dim` holds the batch axis 0."""
+    if not mesh.active() or (dim is not None and 0 not in dim):
+        return x.mean() if dim is None else x.mean(dim=dim)
+    n = x.numel() if dim is None else int(np.prod([x.shape[d] for d in dim]))
+    total = x.sum() if dim is None else x.sum(dim=dim)
+    return total / (n * mesh.world_size())
 
 
 def _weighted_sample_mean(per_sample: Tensor, sample_weight: Tensor) -> Tensor:
     """sum_b x_b w_b / max(sum_b w_b, 1) over the leading axis."""
     w = sample_weight.to(per_sample.dtype)
     w = w.reshape(w.shape + (1,) * (per_sample.ndim - 1))
-    return (per_sample * w).sum(0) / w.sum().clamp_min(1.0)
+    return (per_sample * w).sum(0) / mesh.global_sum(w.sum()).clamp_min(1.0)
 
 
 # -----------------------------------------------------------------------------
@@ -52,7 +71,7 @@ def cross_entropy(mask_logits: Tensor, gt_mask: Tensor,
     logp = F.log_softmax(mask_logits, dim=1)
     ce = -logp.gather(1, gt_mask.long()[:, None])[:, 0]  # [B, H, W]
     if sample_weight is None:
-        return ce.mean()
+        return _mean(ce)
     return _weighted_sample_mean(ce.mean(dim=(1, 2)), sample_weight)
 
 
@@ -72,7 +91,7 @@ def focal_loss(mask_logits: Tensor, gt_mask: Tensor, alpha: float = 0.5,
     per_class = alpha_t * (1 - pt) ** gamma * (-logpt)  # [B, C, H, W]
     per_sample = per_class.mean(dim=(2, 3))  # [B, C]
     if sample_weight is None:
-        return per_sample.mean(0).sum()
+        return _mean(per_sample, (0,)).sum()
     return _weighted_sample_mean(per_sample, sample_weight).sum()
 
 
@@ -83,8 +102,8 @@ def masked_mse(pred_dense: Tensor, gt_dense: Tensor,
     fg = (pred_cat_mask != 0).to(pred_dense.dtype)
     while fg.ndim < pred_dense.ndim:
         fg = fg[..., None]
-    mse = ((pred_dense * fg - gt_dense) ** 2).mean()
-    return mse, (fg.sum() > 0).to(pred_dense.dtype)
+    mse = _mean((pred_dense * fg - gt_dense) ** 2)
+    return mse, (mesh.global_sum(fg.sum()) > 0).to(pred_dense.dtype)
 
 
 # -----------------------------------------------------------------------------
@@ -244,7 +263,7 @@ def dense_supervision(logits: Dict[str, Tensor], gt_mask: Tensor,
 
     def masked_l1(pred: Tensor, target: Tensor, where: Tensor) -> Tensor:
         err = (pred - target).abs().sum(-1)
-        return (err * where).sum() / where.sum().clamp_min(1.0)
+        return (err * where).sum() / mesh.global_sum(where.sum()).clamp_min(1.0)
 
     if weights.get("quaternion"):
         sym = agg["symmetric_ids"].float()[..., None]

@@ -3,7 +3,10 @@ of the JAX package's `metrics.py`): a metric is (init, update, compute)
 functions over a {correct, total} state, on the device of its inputs.
 
 As in the JAX package, the running means accumulate (sum, count) for a
-true mean; the thresholded AP metrics match the reference exactly.
+true mean; the thresholded AP metrics match the reference exactly. Inside
+a process group (`parallel.mesh`), `mask_scores` and the pose metric
+bank's updates are the global batch's: their counts are summed over the
+ranks (the JAX package's `psum`, the reference's `dist_reduce_fx='sum'`).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from fastposecnn_tpu_torch import geometry
+from fastposecnn_tpu_torch.parallel import mesh
 
 State = Dict[str, torch.Tensor]
 
@@ -120,10 +124,13 @@ def mask_scores(pred_mask: torch.Tensor, gt_mask: torch.Tensor, num_classes: int
         tp = tp + (p & g).sum()
         fp = fp + (p & ~g).sum()
         fn = fn + (~p & g).sum()
-    dice = 2 * tp / torch.clamp_min(torch.as_tensor(2 * tp + fp + fn), 1)
-    iou = tp / torch.clamp_min(torch.as_tensor(tp + fp + fn), 1)
     correct = ((pred_mask == gt_mask) & svp).float().sum()
     denom = sv.sum() * pred_mask[0].numel()
+    if mesh.active():
+        tp, fp, fn, correct, denom = mesh.sum_over_ranks([tp, fp, fn, correct, denom],
+                                                         dtype=torch.float64)
+    dice = 2 * tp / torch.clamp_min(torch.as_tensor(2 * tp + fp + fn), 1)
+    iou = tp / torch.clamp_min(torch.as_tensor(tp + fp + fn), 1)
     return {"dice": dice, "iou": iou, "f1": dice,  # micro-F1 == dice
             "accuracy": correct / denom.clamp_min(1.0)}
 
@@ -142,6 +149,19 @@ def init_pose_metric_bank(device=None) -> Dict[str, State]:
 
 
 def update_pose_metric_bank(bank: Dict[str, State], matched) -> Dict[str, State]:
+    """`bank` updated with the matched instances (of the global batch inside
+    a process group)."""
+    if mesh.active():
+        delta = _update_bank(init_pose_metric_bank(bank["degree_error"]["total"].device),
+                             matched)
+        summed = iter(mesh.sum_over_ranks(
+            [v for state in delta.values() for v in state.values()], dtype=torch.float64))
+        return {name: {k: v + next(summed) for k, v in state.items()}
+                for name, state in bank.items()}
+    return _update_bank(bank, matched)
+
+
+def _update_bank(bank: Dict[str, State], matched) -> Dict[str, State]:
     return {
         "degree_error": update_degree_error_mean(bank["degree_error"], matched),
         "degree_error_geodesic": update_degree_error_geodesic(

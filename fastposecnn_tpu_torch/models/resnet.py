@@ -33,6 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fastposecnn_tpu_torch.parallel import mesh
+
 FLAX_MOMENTUM = 0.9
 
 
@@ -54,20 +56,45 @@ class BatchNorm(nn.BatchNorm2d):
     """`nn.BatchNorm2d` (same parameters, buffers and state_dict keys)
     whose train-mode forward normalizes with the biased batch statistics
     and updates the running ones as flax: r <- 0.9 r + 0.1 s, with s the
-    batch mean and the biased batch variance."""
+    batch mean and the biased batch variance.
+
+    Inside a process group (`parallel.mesh`), the batch is the global one:
+    the per-channel sum and sum of squares are summed over the ranks in one
+    all-reduce that carries gradient, and the mean and the biased
+    variance, E[x^2] - E[x]^2 clamped at 0 as flax's fast variance, are the
+    global batch's; every rank then holds the same running statistics."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if mesh.active():
+            return self._global_batch_norm(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.copy_(FLAX_MOMENTUM * self.running_mean
-                                    + (1.0 - FLAX_MOMENTUM) * mean)
-            self.running_var.copy_(FLAX_MOMENTUM * self.running_var
-                                   + (1.0 - FLAX_MOMENTUM) * var)
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
+        return y
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.copy_(FLAX_MOMENTUM * self.running_mean
+                                + (1.0 - FLAX_MOMENTUM) * mean)
+        self.running_var.copy_(FLAX_MOMENTUM * self.running_var
+                               + (1.0 - FLAX_MOMENTUM) * var)
+        self.num_batches_tracked.add_(1)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        n = x.numel() // c * mesh.world_size()  # every rank holds as many rows
+        stats = mesh.all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)),
+                                               (x * x).sum(dim=(0, 2, 3))]))
+        mean = stats[:c] / n
+        var = (stats[c:] / n - mean * mean).clamp_min(0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[None, :, None, None]) * scale[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        with torch.no_grad():
+            self._update_running(mean, var)
         return y
 
 

@@ -30,6 +30,7 @@ import torch
 
 from fastposecnn_tpu_torch.kernels import count_launch
 from fastposecnn_tpu_torch.kernels.build import check, load_library
+from fastposecnn_tpu_torch.parallel import mesh
 
 _DEGENERATE_EPS = 1e-6
 # Slots with fewer foreground pixels than this get a (0, 0) centre
@@ -56,6 +57,16 @@ class VoteDraws:
     shifts: Optional[Tuple[int, ...]] = None
     u: Optional[torch.Tensor] = None
     pairs: Optional[torch.Tensor] = None
+
+    def rank_rows(self) -> "VoteDraws":
+        """This rank's draws of those of the global batch (`parallel.mesh`):
+        its samples' uniforms and its instances' pairs; the shifts are
+        shared."""
+        def rows(x, dim):
+            return None if x is None else mesh.rank_rows(x, dim)
+
+        return VoteDraws(ux=rows(self.ux, 0), uy=rows(self.uy, 0), shifts=self.shifts,
+                         u=rows(self.u, 0), pairs=rows(self.pairs, 1))
 
 
 def sample_draws(b: int, n: int, max_points: int, num_hyp: int,
@@ -436,6 +447,10 @@ def ransac_vote_centers_adaptive(
     from `generator` when `pairs` is None. A slot keeps its best winner
     over the rounds (strictly better ratios replace it).
 
+    Inside a process group (`parallel.mesh`) the loop runs while a slot of
+    any rank is not confident, as the JAX loop over the global batch does,
+    so every rank runs the same rounds.
+
     Returns (centers [M, 2], win_ratio [M], the last round's hypotheses
     [M, H, 2] (zeros if no round ran), rounds run)."""
     m, p, _ = pts.shape
@@ -450,14 +465,15 @@ def ransac_vote_centers_adaptive(
     last_hyps = torch.zeros((m, round_hyp_num, 2), dtype=torch.float32,
                             device=pts.device)
     rounds = 0
-    while rounds < max_iter and not bool(torch.where(
+    while rounds < max_iter and not mesh.all_ranks_true(torch.where(
             active, slot_confident(best_ratio, rounds, round_hyp_num,
                                    confidence), True).all()):
         if pairs is not None:
             idx = pairs[rounds].to(device=pts.device, dtype=torch.int64)
         else:
-            idx = torch.randint(0, p, (m, round_hyp_num, 2),
-                                generator=generator, device=pts.device)
+            idx = mesh.rank_rows(torch.randint(
+                0, p, (m * mesh.world_size(), round_hyp_num, 2),
+                generator=generator, device=pts.device))
         hyps = generate_hypotheses(pts, dirs, idx)
         counts = vote_counts(hyps, pts, dirs, pvalid, inlier_thresh,
                              active=active, impl=impl)
@@ -495,6 +511,9 @@ def hough_vote(agg: dict, max_points: int = 1024, round_hyp_num: int = 128,
     `draws` holds the random draws; without it they come from `generator`
     (on the data's device) and `cpu_generator`. The adaptive loop draws
     each round's pairs from `generator` unless `draws.pairs` holds them.
+    Inside a process group (`parallel.mesh`), `draws` are the global
+    batch's, and fresh draws are made for the global batch, as one process
+    would make them, and this rank's taken (`VoteDraws.rank_rows`).
     Unlike the JAX function, the default is the single shot."""
     if sampler not in ("bbox", "cdf") or refine not in ("dense", "sampled"):
         raise ValueError(f"unknown sampler {sampler!r} or refine {refine!r}")
@@ -502,8 +521,9 @@ def hough_vote(agg: dict, max_points: int = 1024, round_hyp_num: int = 128,
     if draws is None:
         if generator is None or cpu_generator is None:
             raise ValueError("hough_vote needs `draws` or both generators")
-        draws = sample_draws(b, n, max_points, round_hyp_num, generator,
-                             cpu_generator, sampler)
+        draws = sample_draws(b * mesh.world_size(), n, max_points, round_hyp_num,
+                             generator, cpu_generator, sampler)
+    draws = draws.rank_rows()
     if sampler == "cdf":
         pts, dirs, npts, pt_valid = sample_mask_points(
             draws.u, agg["instance_masks"], agg["xy_dense"])

@@ -35,6 +35,7 @@ from fastposecnn_tpu_torch.ops.voting import (
     generate_hypotheses,
     sample_mask_points,
 )
+from fastposecnn_tpu_torch.parallel import mesh
 
 # Slots with fewer foreground pixels than this get a (0, 0) centre.
 _MIN_POINTS = 5
@@ -178,18 +179,22 @@ def soft_hough_vote(agg: dict, max_points: int = 1024, num_hypotheses: int = 128
     'pruned_hypothesis' [B, N, num_hypotheses, 2]. A slot votes when it is
     valid and has at least 5 pixels. `draws.u` and `draws.pairs[0]` are the
     draws; without `draws` both come from `generator`, on the data's
-    device. `kwargs` go to `soft_vote_centers`."""
+    device. Inside a process group both are the global batch's, of which
+    this rank takes its own (`VoteDraws.rank_rows`). `kwargs` go to
+    `soft_vote_centers`."""
     b, n = agg["valid"].shape
     m = b * n
     dev = agg["instance_masks"].device
     if draws is None:
         if generator is None:
             raise ValueError("soft_hough_vote needs `draws` or a generator")
-        u = torch.rand((b, n, max_points), generator=generator, device=dev)
-        pairs = torch.randint(0, max_points, (m, num_hypotheses, 2),
+        ranks = mesh.world_size()
+        u = torch.rand((b * ranks, n, max_points), generator=generator, device=dev)
+        pairs = torch.randint(0, max_points, (m * ranks, num_hypotheses, 2),
                               generator=generator, device=dev)
-    else:
-        u, pairs = draws.u, draws.pairs[0]
+        draws = VoteDraws(u=u, pairs=pairs[None])
+    draws = draws.rank_rows()
+    u, pairs = draws.u, draws.pairs[0]
     pts, dirs, npts, pt_valid = sample_mask_points(u, agg["instance_masks"],
                                                    agg["xy_dense"])
     centers, hyps, pruned = soft_vote_centers(

@@ -13,8 +13,17 @@ optimizer, and checkpoints: `best` on the validation loss, `periodic` every
 train and eval steps compute in `device.full_float32()`; `COMPUTE_DTYPE` is
 not honoured (the JAX loop takes bfloat16 only on a TPU).
 
-Not ported: the per-epoch visualisations (they need matplotlib and PIL)
-and the data-parallel mesh.
+Data parallel (`parallel.mesh`): inside a process group each rank passes
+its rows of every padded global batch (the loaders are sharded by rank,
+`data.loader.PrefetchLoader(shard=...)`) and the steps are the global
+batch's, so every log, the validation loss, the plateau schedule and the
+metric bank are the same on every rank. Rank 0 alone writes the run dir,
+`HPARAM.json`, `run.log`, TensorBoard, checkpoints and fault batches (the
+global batch, gathered); a resume loads on rank 0 and `replicate`s. A
+`BATCH_SIZE` that the ranks do not divide raises before the first step. A
+global batch with no real sample is skipped by every rank.
+
+Not ported: the per-epoch visualisations (they need matplotlib and PIL).
 """
 
 from __future__ import annotations
@@ -33,10 +42,11 @@ import torch
 
 from fastposecnn_tpu_torch import metrics as M
 from fastposecnn_tpu_torch.config import HParams, pipeline_config_from
-from fastposecnn_tpu_torch.data.loader import pad_batch
+from fastposecnn_tpu_torch.data.loader import empty_batch, pad_batch
 from fastposecnn_tpu_torch.device import resolve_device
 from fastposecnn_tpu_torch.models import network_from_hparams
 from fastposecnn_tpu_torch.models.weights import init_random_
+from fastposecnn_tpu_torch.parallel import mesh
 from fastposecnn_tpu_torch.train import checkpoint as ckpt
 from fastposecnn_tpu_torch.train import optim
 from fastposecnn_tpu_torch.train.task import (
@@ -89,6 +99,40 @@ def _file_logger(run_dir: pathlib.Path):
     return flog, fh
 
 
+def _quiet_logger():
+    """A logger for the ranks other than 0, which write nothing."""
+    flog = logging.getLogger("fastposecnn_tpu_torch.rank")
+    flog.propagate = False
+    handler = logging.NullHandler()
+    flog.addHandler(handler)
+    return flog, handler
+
+
+def _rank_batch(batch, hp: HParams, device):
+    """This rank's batch padded to its rows of `BATCH_SIZE`, and the real
+    samples of the global batch (0: every rank skips it; without a group,
+    a None batch)."""
+    ranks = mesh.world_size()
+    if batch is None:
+        if ranks == 1:
+            return None, 0
+        batch = empty_batch(hp.IMAGE_HEIGHT, hp.IMAGE_WIDTH, hp.MAX_INSTANCES)
+    batch, n_real = pad_batch(batch, hp.BATCH_SIZE // ranks)
+    if ranks > 1:
+        n_real = int(mesh.global_sum(torch.full((), float(n_real), device=device)))
+    return (batch if n_real else None), n_real
+
+
+def _global_batch(batch):
+    """The ranks' batches, gathered and concatenated in rank order."""
+    if mesh.world_size() == 1:
+        return batch
+    parts = mesh.all_gather_object(batch)
+    return {"image": np.concatenate([b["image"] for b in parts]),
+            "mask": np.concatenate([b["mask"] for b in parts]),
+            "agg": {k: np.concatenate([b["agg"][k] for b in parts]) for k in batch["agg"]}}
+
+
 def _save_fault_batch(run_dir, step, batch, flog):
     """The batch of a step whose gradients were not finite, for replay."""
     path = run_dir / f"fault_batch_step{step}.npz"
@@ -106,23 +150,34 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
     a reference torch checkpoint, the optimizer re-derived from them).
     Returns (final TrainState, run_dir)."""
     device = resolve_device(device)
+    ranks, lead = mesh.world_size(), mesh.rank() == 0
+    if hp.BATCH_SIZE % ranks:
+        raise ValueError(f"BATCH_SIZE={hp.BATCH_SIZE} does not split over {ranks} "
+                         "data-parallel ranks")
     if resume_from:
         hp = ckpt.merge_arch_from_any(resume_from, hp)
-    run_dir = pathlib.Path(run_dir) if run_dir else make_run_dir(hp)
-    run_dir.mkdir(parents=True, exist_ok=True)
-    hp.save(run_dir / "HPARAM.json")  # FPC/train.py:277-278
-    logger = RunLogger(run_dir, enabled=enable_tb)
-    flog, handler = _file_logger(run_dir)
+    if lead:
+        run_dir = pathlib.Path(run_dir) if run_dir else make_run_dir(hp)
+        run_dir.mkdir(parents=True, exist_ok=True)
+        hp.save(run_dir / "HPARAM.json")  # FPC/train.py:277-278
+    run_dir = pathlib.Path(mesh.broadcast_object(str(run_dir) if lead else None))
+    logger = RunLogger(run_dir, enabled=enable_tb and lead)
+    flog, handler = _file_logger(run_dir) if lead else _quiet_logger()
     try:
         flog.info("hparams: %s", hp.to_json().replace("\n", " "))
+        if ranks > 1:
+            flog.info("data-parallel over %d ranks (%s), %d samples a rank", ranks,
+                      mesh.backend(), hp.BATCH_SIZE // ranks)
         net = network_from_hparams(hp)
         net = init_random_(net, INIT_SEED).to(device)
         pcfg = pipeline_config_from(hp)
         optimizer = make_optimizer(hp, net)
         state = create_train_state(net, optimizer)
-        if resume_from:
+        if resume_from and lead:
             state, hp = ckpt.load_any_checkpoint(resume_from, state, hp, optimizer=optimizer)
             flog.info("resumed from %s at step %d", resume_from, state.step)
+        state = mesh.replicate(state)
+        hp = mesh.broadcast_object(hp)
         train_step = make_train_step(net, optimizer, hp, pcfg, inv_intrinsics, device)
         eval_step = make_eval_step(net, hp, pcfg, inv_intrinsics, device)
 
@@ -139,13 +194,15 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
                 for (step_i, _), logs in zip(buffered, fetch_logs([lg for _, lg in buffered])):
                     logger.log_metrics("train", logs, step_i)
                     if logs.get("grad/finite", 1.0) < 1.0 and step_i in recent:
-                        _save_fault_batch(run_dir, step_i, recent[step_i], flog)
+                        fault = _global_batch(recent[step_i])  # every rank takes part
+                        if lead:
+                            _save_fault_batch(run_dir, step_i, fault, flog)
                 recent.clear()
 
             for batch in train_loader:
+                batch, n_real = _rank_batch(batch, hp, device)
                 if batch is None:  # every sample rejected
                     continue
-                batch, n_real = pad_batch(batch, hp.BATCH_SIZE)
                 state, logs = train_step(state, batch, seed=TRAIN_SEED)
                 host_step += 1
                 n_images += n_real
@@ -165,9 +222,9 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
             bank = M.init_pose_metric_bank(device)
             pending_val, val_weights = [], []
             for batch in valid_loader:
+                batch, n_real = _rank_batch(batch, hp, device)
                 if batch is None:
                     continue
-                batch, n_real = pad_batch(batch, hp.BATCH_SIZE)
                 val_weights.append(n_real)
                 logs, bank, _ = eval_step(state, batch, bank, seed=epoch)
                 pending_val.append(logs)
@@ -190,19 +247,22 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
             state = dataclasses.replace(
                 state, opt_state=optim.set_lr_scale(state.opt_state, plateau.scale))
 
-            # ---- checkpoints ----
+            # ---- checkpoints (rank 0) ----
             if val_loss < best_val:
                 best_val = val_loss
-                ckpt.save_checkpoint(ckpt_dir / "best", state.step, state, hp)
-            if (epoch + 1) % hp.CKPT_SAVE_FREQUENCY == 0:
+                if lead:
+                    ckpt.save_checkpoint(ckpt_dir / "best", state.step, state, hp)
+            if (epoch + 1) % hp.CKPT_SAVE_FREQUENCY == 0 and lead:
                 ckpt.save_checkpoint(ckpt_dir / "periodic", state.step, state, hp)
             msg = (f"epoch {epoch}: val_loss={val_loss:.4f} "
                    f"lr_scale={plateau.scale:.4f} skipped={state.skipped_updates} "
                    + " ".join(f"{k.split('/')[-1]}={v:.2f}" for k, v in pose_vals.items()))
-            print(msg, flush=True)
+            if lead:
+                print(msg, flush=True)
             flog.info(msg)
 
-        ckpt.save_checkpoint(ckpt_dir / "last", state.step, state, hp)
+        if lead:
+            ckpt.save_checkpoint(ckpt_dir / "last", state.step, state, hp)
         logger.log_hparams(dataclasses.asdict(hp), {"best_val_loss": best_val})
         return state, run_dir
     finally:

@@ -17,6 +17,15 @@ optimizer. As in the JAX step:
     the replay of another run's draws; otherwise they come from generators
     seeded by (seed, step), the counterpart of `fold_in(rng, step)`.
 
+Inside a process group (`parallel.mesh`) a step is the global batch's:
+each rank passes its rows of the batch (and, when it injects them, the
+global batch's dropout masks and vote draws, of which it takes its own;
+fresh ones are drawn for the global batch and sliced), its losses are its
+shares of the global ones, the gradients and the CC kernel's error flag
+are summed over the ranks in one all-reduce after the backward pass, and
+the logs are the global batch's. Every rank then sees the same gradients,
+skips the same steps and keeps bit-equal parameters.
+
 The step reads two values on the host at its end: whether the gradients
 were finite (to skip or apply the update) and, under HEAD_TRAINING on a
 CUDA device, the CC kernel's error flag. On CUDA it runs in
@@ -41,6 +50,7 @@ from fastposecnn_tpu_torch.device import full_float32
 from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
 from fastposecnn_tpu_torch.ops.matching import gather_matched, match_instances
 from fastposecnn_tpu_torch.ops.voting import VoteDraws
+from fastposecnn_tpu_torch.parallel import mesh
 from fastposecnn_tpu_torch.pipeline import PipelineConfig, run_pipeline
 from fastposecnn_tpu_torch.train import optim as O
 
@@ -80,7 +90,10 @@ def upcast_batch(batch: Dict, device) -> Dict:
 def compute_losses(out: Dict[str, Any], batch: Dict[str, Any], hp,
                    perform_matching: bool
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[Dict]]:
-    """Weighted multi-task loss. Returns (total, logs, matched payload)."""
+    """Weighted multi-task loss. Returns (total, logs, matched payload).
+    Inside a process group, `total` is this rank's share of the global loss
+    and the logs are the global batch's (the shares summed over the
+    ranks)."""
     logs: Dict[str, torch.Tensor] = {}
     sw = batch.get("sample_valid")
     mask_logits = out["logits"]["mask"]
@@ -120,6 +133,7 @@ def compute_losses(out: Dict[str, Any], batch: Dict[str, Any], hp,
         logs["pose/num_matched"] = matched["valid"].float().sum()
 
     logs["pose/total_loss"] = total
+    logs = dict(zip(logs, mesh.sum_over_ranks(logs.values())))
     return total, logs, matched
 
 
@@ -161,6 +175,10 @@ def make_train_step(net: torch.nn.Module, optimizer: O.Optimizer, hp,
         net = state.net.train()
         names, params = zip(*net.named_parameters())
         with _precision(device):
+            if mesh.active():  # the global batch's masks, this rank's rows
+                keep = dropout_keep or net.draw_dropout_keep(
+                    batch["image"].shape[0] * mesh.world_size(), device, gen)
+                dropout_keep = {k: mesh.rank_rows(v).to(device) for k, v in keep.items()}
             net.zero_grad(set_to_none=True)
             logits = net(batch["image"], dropout_keep=dropout_keep, generator=gen)
             out = run_pipeline(logits, pcfg, inv_k, draws=draws, generator=gen,
@@ -168,12 +186,14 @@ def make_train_step(net: torch.nn.Module, optimizer: O.Optimizer, hp,
             total, logs, _ = compute_losses(out, batch, hp, perform_matching)
             total.backward()
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            agg = out["aggregated"]
+            cc_error = agg["cc_error"] if agg is not None else None
+            if mesh.active():
+                grads, cc_error = _sum_grads_over_ranks(params, grads, cc_error)
             finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
             safe = [torch.nan_to_num(g) for g in grads]
             logs["grad/global_norm"] = O.global_norm(safe)
             logs["grad/finite"] = finite.float()
-            agg = out["aggregated"]
-            cc_error = agg["cc_error"] if agg is not None else None
             if agg is not None and "vote_rounds" in agg:
                 logs["pose/vote_rounds"] = torch.tensor(float(agg["vote_rounds"]))
             opt_state, skipped = state.opt_state, state.skipped_updates
@@ -190,11 +210,25 @@ def make_train_step(net: torch.nn.Module, optimizer: O.Optimizer, hp,
     return train_step
 
 
+def _sum_grads_over_ranks(params, grads, cc_error):
+    """The gradients and the CC kernel's error flag (a flag set on any rank
+    fails every rank) summed over the ranks in one all-reduce; a parameter
+    with a `.grad` gets the sum there too."""
+    flag = [] if cc_error is None else [cc_error]
+    summed = mesh.sum_over_ranks(list(grads) + flag)
+    grads = summed[:len(grads)]
+    for p, g in zip(params, grads):
+        if p.grad is not None:
+            p.grad.copy_(g)
+    return grads, (summed[-1] if flag else None)
+
+
 def make_eval_step(net: torch.nn.Module, hp, pcfg: PipelineConfig, inv_intrinsics,
                    device):
     """The eval step `step(state, batch, metric_bank, seed=0, draws=None)
     -> (logs, metric_bank, pipeline output)`: the network in eval mode, the
-    same losses, the mask scores and the pose metric bank."""
+    same losses, the mask scores and the pose metric bank (the global
+    batch's inside a process group; the output is this rank's)."""
     device = torch.device(device)
     inv_k = torch.as_tensor(np.asarray(inv_intrinsics, np.float32), device=device)
     perform_matching = hp.PERFORM_MATCHING and pcfg.perform_aggregation
@@ -215,7 +249,10 @@ def make_eval_step(net: torch.nn.Module, hp, pcfg: PipelineConfig, inv_intrinsic
             if matched is not None:
                 metric_bank = M.update_pose_metric_bank(metric_bank, matched)
         if out["aggregated"] is not None:
-            raise_on_error_flag(out["aggregated"]["cc_error"])
+            cc_error = out["aggregated"]["cc_error"]
+            if mesh.active() and cc_error is not None:  # set on any rank fails all
+                cc_error = mesh.global_sum(cc_error)
+            raise_on_error_flag(cc_error)
         return logs, metric_bank, out
 
     return eval_step

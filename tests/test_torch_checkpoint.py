@@ -43,6 +43,7 @@ from fastposecnn_tpu_torch.models.weights import (
 )
 from fastposecnn_tpu_torch.train import checkpoint as ckpt
 from fastposecnn_tpu_torch.train import task as T
+from torch_cleanup import tmp_path  # noqa: F401  (removed after each test)
 
 ATOL, RTOL = 2e-4, 1e-4
 CLASSES = ("bg", "bottle", "bowl")

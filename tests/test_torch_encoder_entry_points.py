@@ -30,6 +30,7 @@ from fastposecnn_tpu_torch.models.weights import init_random_, to_jax_flat
 from fastposecnn_tpu_torch.ops import voting, voting_soft
 from fastposecnn_tpu_torch.serve import InferenceServer
 from fastposecnn_tpu_torch.train import checkpoint as tckpt
+from torch_cleanup import tmp_path  # noqa: F401  (removed after each test)
 
 CLASSES = ("bg", "bottle", "bowl")
 TRAIN = ["--IMAGE_HEIGHT", "64", "--IMAGE_WIDTH", "64", "--BATCH_SIZE", "2",

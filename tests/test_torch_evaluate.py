@@ -37,6 +37,7 @@ from fastposecnn_tpu_torch.data.loader import iterate_batches
 from fastposecnn_tpu_torch.data.nocs import SyntheticNOCSSource
 from fastposecnn_tpu_torch.models.weights import load_npz_checkpoint
 from fastposecnn_tpu_torch.ops.voting import VoteDraws
+from torch_cleanup import tmp_path  # noqa: F401  (removed after each test)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CKPT = REPO / "evidence/rot_demo/ckpt_FULL_c5.npz"

@@ -113,7 +113,8 @@ def test_port_sources_import_no_jax():
                    "train/loop.py", "cli/train.py", "data/augment.py",
                    "native/augment_lib.py", "utils/tb.py", "data/png.py",
                    "data/nocs_writer.py", "data/bank_pool.py", "train/staged.py",
-                   "ops/voting_soft.py", "ops/voting_vp.py", "models/resnet.py"):
+                   "ops/voting_soft.py", "ops/voting_vp.py", "models/resnet.py",
+                   "parallel/mesh.py", "parallel/dryrun.py"):
         assert REPO / "fastposecnn_tpu_torch" / module in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

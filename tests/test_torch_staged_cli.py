@@ -7,8 +7,8 @@ non-slow counterparts of the four slow CLI tests of `tests/test_staged.py`
 end, a restage that regenerates, an npz snapshot written mid-run, a bank
 pool reused across runs), plus `--device cpu` and the staging workers;
 `--train_dir`/`--valid_dir` through the streaming trainer and
-`cli/evaluate.py`; `--NUM_DEVICES` above 1 refused by the streaming
-trainer and only warned about by the staged one. The losses of these runs
+`cli/evaluate.py`; `--NUM_DEVICES` above 1 only warned about by the
+staged trainer (which trains on one device). The losses of these runs
 are only checked finite; the evaluate CLI's folder summary equals the
 in-memory one exactly.
 """
@@ -169,8 +169,11 @@ def test_folders_in_streaming_trainer_and_evaluate(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--synthetic", "4"], ["--train_dir", "t", "--valid_dir", "v"]])
 def test_streaming_trainer_refuses_num_devices(flags, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_cli([*flags, "--NUM_DEVICES", "2", "--epochs", "1"], monkeypatch, tmp_path)
+    """The streaming trainer trains data-parallel (`test_torch_dp_cli.py`)
+    but refuses ranks that do not divide the batch, before it reads or
+    writes anything."""
+    with pytest.raises(ValueError, match="BATCH_SIZE=2 does not split over --NUM_DEVICES 4"):
+        run_cli([*flags, "--NUM_DEVICES", "4", "--epochs", "1"], monkeypatch, tmp_path)
     assert not (tmp_path / "logs").exists()
 
 

@@ -12,8 +12,8 @@ scales, and checkpoint kinds at the same steps. Then the real port CLI on
 the CPU (64x64, 3 classes, MAX_INSTANCES 4, MAX_VOTE_POINTS 128, 32
 hypotheses; `--synthetic` writes NOCS folders and reads them back):
 MASK_TRAINING for 2 epochs and HEAD_TRAINING for 1, resumes from
-`checkpoints/last` and from an npz snapshot, the refused `--NUM_DEVICES`,
-and the error without CUDA.
+`checkpoints/last` and from an npz snapshot, the refused `--NUM_TP`, and
+the error without CUDA.
 Tolerance: exact (batches, losses, scales, steps).
 """
 
@@ -41,6 +41,7 @@ from fastposecnn_tpu_torch.data import nocs as tnocs
 from fastposecnn_tpu_torch.data import synthetic as tsyn
 from fastposecnn_tpu_torch.train import checkpoint as tckpt
 from fastposecnn_tpu_torch.train import loop as tloop
+from torch_cleanup import tmp_path  # noqa: F401  (removed after each test)
 
 SMALL = ["--IMAGE_HEIGHT", "64", "--IMAGE_WIDTH", "64", "--BATCH_SIZE", "2",
          "--SELECTED_CLASSES", "bg", "bottle", "bowl", "--MAX_INSTANCES", "4",
@@ -257,15 +258,17 @@ def test_cli_resumes_from_last_and_from_npz(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--synthetic", "4", "--NUM_DEVICES", "2"], ["--synthetic", "4", "--NUM_DEVICES", "4"],
-    ["--train_dir", "d", "--valid_dir", "d", "--NUM_DEVICES", "8"],
-    ["--synthetic", "4", "--restage_every", "2", "--NUM_DEVICES", "4"],
+    ["--synthetic", "4", "--NUM_DEVICES", "2", "--NUM_TP", "2"],
+    ["--synthetic", "4", "--NUM_DEVICES", "4", "--NUM_TP", "2"],
+    ["--train_dir", "d", "--valid_dir", "d", "--NUM_DEVICES", "8", "--NUM_TP", "4"],
+    ["--synthetic", "4", "--restage_every", "2", "--NUM_DEVICES", "4", "--NUM_TP", "2"],
 ])
 def test_cli_refuses_unported_flags(flags, tmp_path, monkeypatch):
-    """What the port's CLI still lacks: data-parallel training (item 13).
-    The streaming trainer refuses NUM_DEVICES above 1 before it reads or
-    writes anything (the staged trainer warns and trains on one device)."""
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """What the port's CLI still lacks: tensor parallelism (ROADMAP.md queue
+    A item 13; data-parallel `--NUM_DEVICES` is ported,
+    `test_torch_dp_cli.py`). `--NUM_TP` above 1 is refused before anything
+    is read or written."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 13"):
         run_cli(flags, monkeypatch, tmp_path)
     assert not (tmp_path / "logs").exists()
 

@@ -1,7 +1,8 @@
 """Shared set-up of the port's train-step parity tests
-(`test_torch_train_step_*.py`): one JAX `TrainState` carried across to the
-port, JAX's random draws of a step (the dropout keep masks of each decoder
-and the vote draws) and the comparisons.
+(`test_torch_train_step_*.py`, `test_torch_dp_step_*.py`): one JAX
+`TrainState` carried across to the port, JAX's random draws of a step
+(the dropout keep masks of each decoder and the vote draws) and the
+comparisons.
 
 Sizes are `tests/test_train.py::tiny_setup`'s: 3 classes, MAX_INSTANCES 4,
 MAX_VOTE_POINTS 128, 32 hypotheses, batch 2, here at 64x64.
@@ -11,6 +12,7 @@ import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from fastposecnn_tpu.data.synthetic import make_batch
@@ -29,13 +31,16 @@ H = W = 64
 DECODERS = ("mask", "rotation", "translation", "scales")
 
 
-def setup(preset, seed=0):
+def setup(preset, seed=0, batch_size=2, jit_init=False):
     """Both sides of one step: the JAX (hp, net, optimizer, state, jitted
-    step, batch, rng) and the port (hp, net, optimizer, state, step)."""
+    step, batch, rng) and the port (hp, net, optimizer, state, step). With
+    `jit_init` the JAX state is initialised jitted (about 7 s here, against
+    19 s op by op)."""
     hp, net, pcfg, scfg, inv_k = tiny_setup(hp=preset(), h=H, w=W)
     opt = JO.make_optimizer(hp)
-    state = create_train_state(net, opt, jax.random.key(seed), hp)
-    batch = make_batch(np.random.default_rng(seed), scfg, 2)
+    init = lambda key: create_train_state(net, opt, key, hp)  # noqa: E731
+    state = (jax.jit(init) if jit_init else init)(jax.random.key(seed))
+    batch = make_batch(np.random.default_rng(seed), scfg, batch_size)
     jax_side = dict(hp=hp, net=net, pcfg=pcfg, opt=opt, state=state, batch=batch,
                     inv_k=inv_k, step=jax.jit(make_train_step(net, opt, hp, pcfg, inv_k)))
 
@@ -179,3 +184,117 @@ def compare_logs(tlogs, jlogs, loose=None):
     assert not missing, missing
     for key, want in jlogs.items():
         close(tlogs[key], want, key, atol=loose.get(key, ATOL))
+
+
+def run_dp_step(preset, ranks=2, batch_size=4, with_eval=False):
+    """One train step of the global batch of `batch_size` three ways, from
+    one JAX `TrainState` and with JAX's dropout masks and vote draws: the
+    JAX step jitted over `make_mesh(ranks)` with the batch sharded
+    (`shard_batch`) and the state replicated; the port in this process on
+    the whole batch; and the port over `ranks` gloo processes
+    (`torch_dp_ranks.train_step`, one thread each). JAX's adaptive rounds
+    are counted by a debug callback around its `generate_hypotheses`. With
+    `with_eval`, the port's eval step follows, in this process and over the
+    ranks."""
+    import copy
+
+    from fastposecnn_tpu.ops import voting as JV
+    from fastposecnn_tpu.parallel import make_mesh, replicate, shard_batch
+    from fastposecnn_tpu_torch import metrics as TM
+    from fastposecnn_tpu_torch.parallel import mesh
+
+    import torch_dp_ranks
+
+    rounds, original = [], JV.generate_hypotheses
+
+    def counted(*args, **kwargs):
+        jax.debug.callback(lambda: rounds.append(1))
+        return original(*args, **kwargs)
+
+    patch = pytest.MonkeyPatch()
+    patch.setattr(JV, "generate_hypotheses", counted)
+    try:
+        j, t = setup(preset, batch_size=batch_size, jit_init=True)
+        hp = j["hp"]
+        rng = jax.random.key(1)
+        k_drop, k_pipe = step_keys(rng, 0)
+        keep = dropout_keep(j, k_drop)
+        draws = (vote_draws(k_pipe, batch_size, hp.MAX_INSTANCES, hp.MAX_VOTE_POINTS,
+                            hp.HV_NUM_OF_HYPOTHESES) if hp.PERFORM_HOUGH_VOTING else None)
+        jmesh = make_mesh(ranks)
+        jstate, jlogs = j["step"](replicate(j["state"], jmesh),
+                                  shard_batch(j["batch"], jmesh), rng)
+        jax.block_until_ready(jlogs)
+        jax.effects_barrier()
+        jax_rounds = len(rounds)
+    finally:
+        patch.undo()
+
+    tstate = t["state"]
+    start = ({k: v.clone() for k, v in tstate.net.state_dict().items()},
+             copy.deepcopy(tstate.opt_state), tstate.step)
+    eval_draws = (vote_draws(jax.random.key(3), batch_size, hp.MAX_INSTANCES,
+                             hp.MAX_VOTE_POINTS, hp.HV_NUM_OF_HYPOTHESES)
+                  if with_eval else None)
+    single_state, single_logs = t["step"](tstate, j["batch"], dropout_keep=keep, draws=draws)
+    single = dict(state=single_state, logs=single_logs)
+    if with_eval:
+        estep = TT.make_eval_step(single_state.net, t["hp"], t["pcfg"], j["inv_k"], "cpu")
+        elogs, bank, eout = estep(single_state, j["batch"], TM.init_pose_metric_bank(),
+                                  draws=eval_draws)
+        single["eval"] = dict(logs=elogs, bank=bank, out=eout["aggregated"])
+    dp = mesh.launch(torch_dp_ranks.train_step, ranks,
+                     (t["hp"].to_json(), *start, j["batch"], keep, draws, j["inv_k"],
+                      eval_draws), backend="gloo", threads=1, deadline_s=300.0)
+    return dict(jstate=jstate, jlogs=jlogs, jax_rounds=jax_rounds, single=single, dp=dp)
+
+
+def dp_train_state(rank0, num_classes):
+    """A port `TrainState` from rank 0's results of `torch_dp_ranks.train_step`."""
+    from fastposecnn_tpu_torch.train import optim as TO
+
+    net = PoseRegressorNet(num_classes)
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in rank0["state_dict"].items()})
+    for n, p in net.named_parameters():
+        g = rank0["grads"][n]
+        p.grad = None if g is None else torch.from_numpy(g)
+    count, la_step, hyper_count, lr_scale = rank0["counts"]
+    tensors = {k: {n: torch.from_numpy(v) for n, v in rank0[k].items()}
+               for k in ("mu", "nu", "slow")}
+    opt = TO.OptState(tensors["mu"], tensors["nu"], count, tensors["slow"], la_step,
+                      lr_scale, hyper_count)
+    return TT.TrainState(net, opt, rank0["step"], rank0["skipped"])
+
+
+def compare_dp(r, num_classes, loose=None):
+    """The data-parallel step of `run_dp_step` against the JAX step over the
+    mesh (logs, parameters, batch statistics, slow weights at the golden
+    tolerance; moments in L2) and against the port's single-process step
+    (the same, and the gradients in L2 per tensor); the parameters,
+    statistics and optimizer state bit-equal on every rank."""
+    dp0 = r["dp"][0]
+    assert len({d["digest"] for d in r["dp"]}) == 1, "the ranks' states differ"
+    state = dp_train_state(dp0, num_classes)
+    compare_logs(dp0["logs"], {k: float(v) for k, v in r["jlogs"].items()}, loose=loose)
+    compare_states(state, r["jstate"])
+    single = r["single"]["state"]
+    compare_logs(dp0["logs"], {k: float(v) for k, v in r["single"]["logs"].items()})
+    mine, want = state.net.state_dict(), single.net.state_dict()
+    for name in want:
+        close(mine[name], want[name], name)
+    want_grads = dict(single.net.named_parameters())
+    reached = 0
+    for name, p in state.net.named_parameters():
+        g = want_grads[name].grad
+        assert (p.grad is None) == (g is None), name
+        if g is not None and g.any():
+            close_l2(p.grad, g, f"grad {name}")
+            reached += 1
+    assert reached > 0
+    o, w = state.opt_state, single.opt_state
+    for name in w.mu:
+        close_l2(o.mu[name], w.mu[name], f"mu {name}")
+        close_l2(o.nu[name], w.nu[name], f"nu {name}", rel=2 * GRAD_REL)
+        close(o.slow[name], w.slow[name], f"slow {name}")
+    assert (state.step, state.skipped_updates) == (single.step, single.skipped_updates)
+    return state
