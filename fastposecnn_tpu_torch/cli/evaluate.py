@@ -2,23 +2,32 @@
 `cli/evaluate.py`), on CUDA unless `--device cpu` is given.
 
     python -m fastposecnn_tpu_torch.cli.evaluate (--synthetic 8 | --valid_dir D) \
-        --output out [--CHECKPOINT weights.npz|ref.ckpt|checkpoints/best] [--device cpu] \
-        [--HV_NUM_OF_HYPOTHESES ...]
+        --output out [--draw N] [--CHECKPOINT weights.npz|ref.ckpt|checkpoints/best] \
+        [--device cpu] [--HV_NUM_OF_HYPOTHESES ...]
 
 Phase A (skipped when `raw_errors_<VALID_SIZE>.npz` exists in --output):
 the validation scenes go through the network and the post-network stages
 of the EVALUATING preset (adaptive RANSAC), GT and predictions are matched
 by mask IoU, and the per-class raw errors (3D IoU, rotation in degrees as
 the reference's chord metric and as the true geodesic angle, offset in cm)
-are computed on the host in float64 and saved. Phase B: 50-point AP curves
-and the table APs at {IoU .25/.5, 5/10 deg, 5/10 cm} with the joint
-5deg5cm / 10deg5cm / 10deg10cm APs, written as CSV (one file per metric,
-classes as columns) and JSON with numpy alone.
+are computed on the host in float64 and saved. `--draw N` saves the
+comparison figures of the first image of each of the first N batches
+(`eval_<batch>_{gt,pred,poses}.png`, `utils.visualize.compare_all_performance`);
+they need matplotlib and cv2, and without them the CLI raises before phase
+A and names the package. Phase B: 50-point AP curves and the table APs at
+{IoU .25/.5, 5/10 deg, 5/10 cm} with the joint 5deg5cm / 10deg5cm /
+10deg10cm APs. The curves are plotted into
+`all_metrics_<VALID_SIZE>_aps.png` when matplotlib imports (else phase B
+says that it has no plot and why). The table and the curves go through
+`utils.report.save_aps` to `<VALID_SIZE>_aps_values_table.xlsx` and
+`<VALID_SIZE>_aps_curves.xlsx` with pandas and an Excel engine, else to one
+CSV per metric in `<VALID_SIZE>_aps_values_table/` and
+`<VALID_SIZE>_aps_curves/` (numpy alone, so they are written on every
+machine).
 
 The scenes are a NOCS folder (`--valid_dir`, read by `data.nocs.NOCSDataset`
 as the JAX CLI reads it) or the in-memory synthetic source (`--synthetic N`,
-the same scenes as the JAX CLI writes and reads back for the same seed);
-the AP plot and the xlsx table and `--draw` are not ported.
+the same scenes as the JAX CLI writes and reads back for the same seed).
 
 `--NUM_DEVICES N` runs phase A data-parallel, as the JAX CLI does over a
 mesh: N ranks (`parallel.mesh.launch`; one a card over NCCL, or N gloo
@@ -34,7 +43,6 @@ ported).
 from __future__ import annotations
 
 import argparse
-import json
 import pathlib
 import time
 from typing import Callable, Dict, Optional
@@ -48,6 +56,7 @@ from fastposecnn_tpu_torch import pipeline as P
 from fastposecnn_tpu_torch.device import full_float32, resolve_device
 from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
 from fastposecnn_tpu_torch.parallel import mesh
+from fastposecnn_tpu_torch.utils.report import save_aps
 from fastposecnn_tpu_torch.utils.timer import StageTimer
 
 APS_NUM_OF_POINTS = 50
@@ -76,7 +85,8 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
                        draws_for: Optional[Callable[[int], object]] = None,
                        generator: Optional[torch.Generator] = None,
                        cpu_generator: Optional[torch.Generator] = None,
-                       timers: Optional[Dict[str, StageTimer]] = None):
+                       timers: Optional[Dict[str, StageTimer]] = None,
+                       draw: int = 0, draw_dir=None):
     """Phase A: forward, match and per-class raw errors over `batches`
     (collated numpy batches, None for an all-rejected one).
 
@@ -88,7 +98,9 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
     rank's rows of each batch (None where it has none), the draws are the
     whole batch's, a flag set on any rank raises on every rank, and the
     matched values of the ranks are gathered in row order before the
-    errors, which every rank computes alike. Returns (raw errors
+    errors, which every rank computes alike. With `draw` and `draw_dir`,
+    the first `draw` batches' comparison figures go to `draw_dir`
+    (`save_comparison_figure`; this rank's first image). Returns (raw errors
     {metric: {class: float64 array}}, stats {frames, batches, vote_rounds
     per batch, seconds, and the first batch's frames and seconds, which
     include cuDNN timing its algorithms for the batch's shape})."""
@@ -127,6 +139,8 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
                 matched = gather_matched(
                     agg, db["agg"], match,
                     keys=("quaternion", "scales", "z", "xy", "T", "R", "RT"))
+        if draw_dir is not None and bi < draw:
+            save_comparison_figure(hp, batch, matched, cat, agg, bi, draw_dir)
         with timers["errors"].measure():
             m = {k: v.cpu().numpy() for k, v in matched.items()}
             real = np.arange(len(m["valid"])) < n_real
@@ -159,6 +173,27 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
                     for c, v in per.items()}
            for metric, per in raw.items()}
     return raw, stats
+
+
+def save_comparison_figure(hp, batch, matched, cat, agg, bi: int, draw_dir) -> None:
+    """The gt / pred / poses figures of a batch's first image, as
+    `eval_<bi>_{gt,pred,poses}.png` (the reference's DRAW option,
+    FPC/evaluate.py:161-187; the JAX CLI's `_save_comparison_figure`)."""
+    from fastposecnn_tpu_torch.utils import visualize as vz
+    from fastposecnn_tpu_torch.utils.optional import pyplot
+
+    def first(d):
+        return {k: v[0].cpu().numpy() for k, v in d.items() if isinstance(v, torch.Tensor)}
+
+    intr = constants.scaled_intrinsics(hp.DATASET_NAME, hp.IMAGE_HEIGHT, hp.IMAGE_WIDTH)
+    figs = vz.compare_all_performance(
+        vz.denormalize_image(np.asarray(batch["image"][0])), first(cat), hp.num_classes,
+        gt_mask=np.asarray(batch["mask"][0]), matched=first(matched),
+        aggregated=first(agg), intrinsics=intr)
+    plt = pyplot("the evaluate CLI's --draw figures")
+    for name, fig in zip(("gt", "pred", "poses"), figs):
+        fig.savefig(str(pathlib.Path(draw_dir) / f"eval_{bi:04d}_{name}.png"))
+        plt.close(fig)
 
 
 def compute_aps(raw, class_names):
@@ -211,24 +246,28 @@ def compute_aps(raw, class_names):
     return figure_aps, figure_thresholds, table_aps, table_thresholds
 
 
-def save_aps(out_dir, thresholds, aps, cls_names) -> pathlib.Path:
-    """One CSV per metric (thresholds as rows, classes as columns, APs in
-    percent), in the layout of the JAX package's CSV fallback, plus
-    `aps.json` holding the same numbers."""
-    out_dir = pathlib.Path(out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    as_json = {}
-    for metric, per_class in aps.items():
-        names = [n for n in cls_names if n in per_class]
-        cols = [100 * np.asarray(per_class[n], np.float64) for n in names]
-        lines = ["," + ",".join(names)]
-        for i, t in enumerate(np.asarray(thresholds[metric], np.float64)):
-            lines.append(",".join([repr(float(t))] + [repr(float(c[i])) for c in cols]))
-        (out_dir / f"{metric}.csv").write_text("\n".join(lines) + "\n")
-        as_json[metric] = {"thresholds": [float(t) for t in thresholds[metric]],
-                           **{n: [float(v) for v in c] for n, c in zip(names, cols)}}
-    (out_dir / "aps.json").write_text(json.dumps(as_json, indent=1))
-    return out_dir
+def save_ap_plot(path: pathlib.Path, figure_aps, thresholds, names) -> str:
+    """Phase B's AP curves (`utils.visualize.plot_aps`) at `path`; without
+    matplotlib, no plot: returns the reason instead of the path."""
+    from fastposecnn_tpu_torch.utils import visualize as vz
+    from fastposecnn_tpu_torch.utils.optional import pyplot
+
+    try:
+        plt = pyplot("phase B's AP plot")
+    except ImportError as e:
+        return f"no plot: {e}"
+    fig = vz.plot_aps(
+        figure_aps, thresholds,
+        titles={"3d_iou": "3D Iou AP", "degree_error": "Rotation AP",
+                "degree_error_geodesic": "Rotation AP (geodesic)",
+                "offset_error": "Translation AP"},
+        x_labels={"3d_iou": "3D IoU %", "degree_error": "Rotation error/degree",
+                  "degree_error_geodesic": "True rotation error/degree",
+                  "offset_error": "Translation error/cm"},
+        cls_names=names)
+    fig.savefig(str(path))
+    plt.close(fig)
+    return str(path)
 
 
 def load_raw(path) -> Dict[str, Dict[int, np.ndarray]]:
@@ -251,6 +290,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--synthetic_seed", type=int, default=999983,
                         help="scene seed for --synthetic (the JAX CLI's default)")
     parser.add_argument("--output", default="eval_output")
+    parser.add_argument("--draw", type=int, default=0,
+                        help="save comparison figures of the first N batches")
     parser.add_argument("--fpc_compat_iou", action="store_true",
                         help="the reference evaluator's 3D-IoU corner-axis "
                              "reduction quirk")
@@ -350,7 +391,7 @@ def phase_a(hp, args, device):
         fpc_compat_iou=args.fpc_compat_iou,
         generator=torch.Generator(device).manual_seed(args.vote_seed),
         cpu_generator=torch.Generator().manual_seed(args.vote_seed),
-        timers=timers)
+        timers=timers, draw=args.draw, draw_dir=args.output if mesh.rank() == 0 else None)
     for t in timers.values():
         t.flush()
     stats.update(scene_seconds=scene_seconds,
@@ -377,6 +418,11 @@ def main(argv=None) -> dict:
     summary: dict = {"device": str(device)}
 
     if not results_path.exists():
+        if args.draw > 0:
+            from fastposecnn_tpu_torch.utils.optional import need, pyplot
+
+            pyplot("the evaluate CLI's --draw figures")
+            need("cv2", "the evaluate CLI's --draw figures")
         ranks = data_parallel_ranks(hp, device)
         if ranks > 1:
             print(f"phase A: data-parallel over {mesh.make_mesh(ranks).shape} mesh")
@@ -407,11 +453,14 @@ def main(argv=None) -> dict:
     raw = load_raw(results_path)
     figure_aps, fig_thr, table_aps, table_thr = compute_aps(raw, class_names)
     names = class_names[1:] + ["mean"]
-    tables = save_aps(out_dir / f"{hp.VALID_SIZE}_aps_values_table", table_thr,
+    plot = save_ap_plot(out_dir / f"all_metrics_{hp.VALID_SIZE}_aps.png", figure_aps,
+                        fig_thr, names)
+    tables = save_aps(out_dir / f"{hp.VALID_SIZE}_aps_values_table.xlsx", table_thr,
                       table_aps, names)
-    curves = save_aps(out_dir / f"{hp.VALID_SIZE}_aps_curves", fig_thr,
+    curves = save_aps(out_dir / f"{hp.VALID_SIZE}_aps_curves.xlsx", fig_thr,
                       figure_aps, names)
-    print(f"phase B: tables -> {tables}, curves -> {curves}")
+    print(f"phase B: plot -> {plot}, tables -> {tables}, curves -> {curves}")
+    summary.update(ap_plot=plot, ap_tables=str(tables), ap_curves=str(curves))
     mean_ious = table_aps["3d_iou"]["mean"]
     mean_joint = table_aps["degree_error+offset_error"]["mean"]
     print(

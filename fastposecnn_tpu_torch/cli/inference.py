@@ -2,7 +2,8 @@
 per-stage ms / fps report of the reference's six timers (counterpart of the
 JAX package's `cli/inference.py`), on CUDA unless `--device cpu` is given.
 
-    python -m fastposecnn_tpu_torch.cli.inference --synthetic 8 --stage_timing \
+    python -m fastposecnn_tpu_torch.cli.inference (--synthetic 8 | --valid_dir D) \
+        [--stage_timing] [--output DIR [--draw N]] [--trace DIR] \
         [--CHECKPOINT weights.npz|ref.ckpt|checkpoints/best] [--device cpu]
 
 `forward` times the network and every post-network stage of one frame
@@ -11,14 +12,25 @@ the frame a second time stage by stage, each stage fed the previous one's
 output, and times `model`, `class_compress`, `aggregation`,
 `hough_voting` and `rt_calculation` alone, all in full float32 (TF32
 off). On CUDA the timers are CUDA events, read after each frame, and
-the CC kernel's error flags are read after them. The figures of the JAX CLI
-(`--output`, `--draw`) and its profiler trace are not ported.
+the CC kernel's error flags are read after them.
+
+`--output DIR` saves a summary figure of each of the first `--draw` frames
+(default 20) as DIR/<frame>.png: the image, the predicted and GT masks, the
+GT and predicted poses (predictions matched to the GT by mask IoU), the
+voted centres and the first instance's hypothesis cloud. It needs
+matplotlib and cv2; without them the CLI raises before the first frame and
+names the package. `--trace DIR` records the loop with `torch.profiler`
+(the host and, on CUDA, the card's kernels) and writes a Chrome trace,
+DIR/trace.json; it needs no other package.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import pathlib
 
+import numpy as np
 import torch
 
 from fastposecnn_tpu_torch import config as C
@@ -39,16 +51,21 @@ TIMERS = {
 
 
 def main(argv=None) -> dict:
-    """Run the loop; returns {stage: average ms} and the frame count."""
+    """Run the loop; returns the frame count, {stage: average ms}, the
+    figures written and the trace's path (with `--trace`)."""
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--valid_dir", default=None,
-                        help="a NOCS folder on disk (not ported: use --synthetic)")
+    parser.add_argument("--valid_dir", default=None, help="a NOCS folder on disk")
     parser.add_argument("--synthetic", type=int, default=0)
     parser.add_argument("--synthetic_pose_cues", action="store_true")
     parser.add_argument("--synthetic_cue_boost", action="store_true")
     parser.add_argument("--synthetic_seed", type=int, default=999983)
+    parser.add_argument("--output", default=None, help="dir for the figures")
+    parser.add_argument("--draw", type=int, default=20,
+                        help="save figures of the first N frames (with --output)")
     parser.add_argument("--stage_timing", action="store_true")
+    parser.add_argument("--trace", default=None,
+                        help="write a torch.profiler Chrome trace into this dir")
     parser.add_argument("--device", default=None, help="'cuda' (the default) or 'cpu'")
     C.add_cli_overrides(parser, C.HParams())
     args = parser.parse_args(argv)
@@ -69,13 +86,30 @@ def main(argv=None) -> dict:
     gens = dict(generator=torch.Generator(device).manual_seed(0),
                 cpu_generator=torch.Generator().manual_seed(0))
     timers = {k: StageTimer(name, device) for k, name in TIMERS.items()}
+    out_dir = pathlib.Path(args.output) if args.output else None
+    if out_dir and args.draw > 0:
+        from fastposecnn_tpu_torch.utils.optional import need, pyplot
 
-    frames = 0
-    with torch.inference_mode(), full_float32():
+        pyplot("the inference CLI's --output figures")
+        need("cv2", "the inference CLI's --output figures")
+        out_dir.mkdir(parents=True, exist_ok=True)
+    profiler = contextlib.nullcontext()
+    if args.trace:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+
+    frames, figures = 0, []
+    with profiler as prof, torch.inference_mode(), full_float32():
         for batch in iterate_batches(source, 1):
             if batch is None:
                 continue
-            image = upcast_batch(pad_batch(batch, 1)[0], device)["image"]
+            batch = pad_batch(batch, 1)[0]
+            db = upcast_batch(batch, device)
+            image = db["image"]
             with timers["forward"].measure():
                 out = P.run_pipeline(net(image), pcfg, inv_K, **gens)
             flags = [out["aggregated"]["cc_error"]]
@@ -91,15 +125,57 @@ def main(argv=None) -> dict:
                     agg = P.stage_hough_voting(agg, pcfg, **gens)
                 with timers["rt_calculation"].measure():
                     P.stage_rt_calculation(agg, inv_K)
-            frames += 1
             for t in timers.values():
                 t.flush()
             # The CC kernel's error flags, read after the frame's timers.
             for err in flags:
                 raise_on_error_flag(err)
+            if out_dir and frames < args.draw:
+                figures.append(save_frame_figure(out, db, batch, hp, out_dir / f"{frames:04d}.png"))
+            frames += 1
     report_runtime(timers)
-    return {"frames": frames, "device": str(device),
-            "stage_ms": {k: t.average for k, t in timers.items() if t.times_ms}}
+    summary = {"frames": frames, "device": str(device), "figures": figures,
+               "stage_ms": {k: t.average for k, t in timers.items() if t.times_ms}}
+    if args.trace:
+        trace_dir = pathlib.Path(args.trace)
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace_dir / "trace.json"))
+        summary["trace"] = str(trace_dir / "trace.json")
+    return summary
+
+
+def save_frame_figure(out, db, batch, hp, path: pathlib.Path) -> str:
+    """The summary figure of one frame (the JAX CLI's): the image, the
+    predicted and GT masks, the GT and predicted poses of the matched
+    instances, the voted centres and the first valid slot's hypothesis
+    cloud; returns the path written."""
+    from fastposecnn_tpu_torch import constants
+    from fastposecnn_tpu_torch.ops.matching import gather_matched, match_instances
+    from fastposecnn_tpu_torch.utils import visualize as vz
+    from fastposecnn_tpu_torch.utils.optional import pyplot
+
+    agg = out["aggregated"]
+    matched = gather_matched(agg, db["agg"], match_instances(agg, db["agg"]),
+                             keys=("scales", "RT"))
+    m = {k: v[0].cpu().numpy() for k, v in matched.items()}
+    a = {k: agg[k][0].cpu().numpy() for k in ("valid", "xy", "hypothesis", "pruned_hypothesis")}
+    pred_mask = out["categorical"]["mask"][0].cpu().numpy()
+    img = vz.denormalize_image(np.asarray(batch["image"][0]))
+    intrinsics = constants.scaled_intrinsics(hp.DATASET_NAME, hp.IMAGE_HEIGHT, hp.IMAGE_WIDTH)
+    slot = int(np.argmax(a["valid"])) if a["valid"].any() else 0
+    fig = vz.make_summary_figure(
+        rgb=img,
+        pred_mask=vz.colorize_mask(pred_mask, hp.num_classes),
+        gt_mask=vz.colorize_mask(np.asarray(batch["mask"][0]), hp.num_classes),
+        pose=vz.compare_pose_performance(img, m["gt_RT"], m["gt_scales"], m["pred_RT"],
+                                         m["pred_scales"], m["valid"], intrinsics),
+        hough=vz.visualize_hypothesis(img, a["xy"], a["valid"]),
+        hough_cloud=vz.visualize_hough_voting(pred_mask, a["hypothesis"][slot],
+                                              a["pruned_hypothesis"][slot], a["xy"][slot]),
+    )
+    fig.savefig(str(path))
+    pyplot("the inference CLI's --output figures").close(fig)
+    return str(path)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
-"""Dataset constants (a copy of the JAX package's `constants.py:15-82`, without
-the matplotlib colormap; the port imports nothing of that package).
+"""Dataset constants (a copy of the JAX package's `constants.py`; the port
+imports nothing of that package). `colormap` builds matplotlib's "hsv"
+colormap from its segment data with numpy alone, so class colours need no
+matplotlib.
 
 CAMERA intrinsics fx=fy=577.5 cx=319.5 cy=239.5; REAL intrinsics
 fx=591.0125 fy=590.16775 cx=322.525 cy=244.11084 (public NOCS dataset facts).
@@ -67,3 +69,46 @@ def dataset_spec(name: str, selected_classes=None) -> DatasetSpec:
         symmetric_classes=tuple(c for c in SYMMETRIC_CLASSES if c in classes),
         intrinsics=INTRINSICS[name],
     )
+
+
+# matplotlib's "hsv" colormap (`matplotlib._cm._hsv_data`): (x, y0, y1) rows
+# of each channel's piecewise-linear map of [0, 1], sampled into a 256-entry
+# table as `matplotlib.colors.LinearSegmentedColormap` does.
+_HSV_SEGMENTS = {
+    "red": ((0.0, 1.0, 1.0), (0.15873, 1.0, 1.0), (0.174603, 0.96875, 0.96875),
+            (0.333333, 0.03125, 0.03125), (0.349206, 0.0, 0.0), (0.666667, 0.0, 0.0),
+            (0.68254, 0.03125, 0.03125), (0.84127, 0.96875, 0.96875),
+            (0.857143, 1.0, 1.0), (1.0, 1.0, 1.0)),
+    "green": ((0.0, 0.0, 0.0), (0.15873, 0.9375, 0.9375), (0.174603, 1.0, 1.0),
+              (0.507937, 1.0, 1.0), (0.666667, 0.0625, 0.0625), (0.68254, 0.0, 0.0),
+              (1.0, 0.0, 0.0)),
+    "blue": ((0.0, 0.0, 0.0), (0.333333, 0.0, 0.0), (0.349206, 0.0625, 0.0625),
+             (0.507937, 1.0, 1.0), (0.84127, 1.0, 1.0), (0.857143, 0.9375, 0.9375),
+             (1.0, 0.09375, 0.09375)),
+}
+_LUT_SIZE = 256
+
+
+def _lookup_table(segments, n: int = _LUT_SIZE) -> np.ndarray:
+    """matplotlib's `colors._create_lookup_table(n, segments)` at gamma 1."""
+    data = np.asarray(segments, np.float64)
+    x, y0, y1 = data[:, 0] * (n - 1), data[:, 1], data[:, 2]
+    xind = (n - 1) * np.linspace(0, 1, n)
+    ind = np.searchsorted(x, xind)[1:-1]
+    distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+    lut = np.concatenate([[y1[0]], distance * (y0[ind] - y1[ind - 1]) + y1[ind - 1],
+                          [y0[-1]]])
+    return np.clip(lut, 0.0, 1.0)
+
+
+def colormap(num_classes: int, bg_index: int = 0) -> np.ndarray:
+    """[num_classes, 3] float64 class colours: the "hsv" colormap at
+    x / num_classes, black for the background (FPC/tools/project.py:52-66);
+    equal to the JAX package's, which asks matplotlib."""
+    lut = np.stack([_lookup_table(_HSV_SEGMENTS[c]) for c in ("red", "green", "blue")], -1)
+    out = np.zeros((num_classes, 3))
+    for x in range(num_classes):
+        if x != bg_index:
+            i = np.array(x / num_classes) * _LUT_SIZE
+            out[x] = lut[min(int(i), _LUT_SIZE - 1)]
+    return out

@@ -5,7 +5,10 @@ nowhere else, so a run can show that its main path went through the
 kernels. The wrappers live beside their plain PyTorch versions, in
 `ops/connected_components.py` (cc_label), `ops/voting.py` (vote_count) and
 `probes/vote_variants.py` (vote_expanded_mm and vote_expanded_bcast, the
-probe of K2's formulation, on no main path).
+probe of K2's formulation, on no main path). cc_label and vote_count are
+also the CUDA implementations of the custom ops `fastposecnn::cc_label` and
+`fastposecnn::vote_count`, so a loaded exported program counts its
+launches too.
 """
 
 from __future__ import annotations

@@ -15,9 +15,10 @@ The JAX stem pads RGB to 4 channels with a zero alpha channel; here the
 stem takes 3 channels and `weights.from_jax_params` drops the zero alpha
 input channel of the converted kernel. Every BatchNorm (the bottleneck's
 `bn3` and the downsample's too) has eps 1e-5. In training, `BatchNorm`
-updates its running statistics as flax does (`models/resnet.py:53-59` of
-the JAX package): momentum 0.9 on the batch mean and the biased batch
-variance, where `nn.BatchNorm2d` would take the unbiased one.
+normalizes with flax's fast variance, E[x^2] - E[x]^2, and updates its
+running statistics as flax does (`models/resnet.py:53-59` of the JAX
+package): momentum 0.9 on the batch mean and that biased batch variance,
+where `nn.BatchNorm2d` would take the unbiased one.
 
 The stem max pool is `nn.MaxPool2d`: its backward routes each window's
 cotangent to the first maximum in row-major order, the tie rule of the JAX
@@ -31,7 +32,6 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from fastposecnn_tpu_torch.parallel import mesh
 
@@ -54,36 +54,21 @@ RESNET_SPECS = {
 
 class BatchNorm(nn.BatchNorm2d):
     """`nn.BatchNorm2d` (same parameters, buffers and state_dict keys)
-    whose train-mode forward normalizes with the biased batch statistics
-    and updates the running ones as flax: r <- 0.9 r + 0.1 s, with s the
-    batch mean and the biased batch variance.
+    whose train-mode forward normalizes as flax's `nn.BatchNorm` with its
+    default fast variance: from the per-channel sum and sum of squares, the
+    mean and the biased variance E[x^2] - E[x]^2 clamped at 0; it updates
+    the running statistics as flax does, r <- 0.9 r + 0.1 s, from the same
+    mean and variance.
 
     Inside a process group (`parallel.mesh`), the batch is the global one:
-    the per-channel sum and sum of squares are summed over the ranks in one
-    all-reduce that carries gradient, and the mean and the biased
-    variance, E[x^2] - E[x]^2 clamped at 0 as flax's fast variance, are the
-    global batch's; every rank then holds the same running statistics."""
+    the sums are summed over the ranks in one all-reduce that carries
+    gradient, so every rank normalizes with the global batch's statistics
+    and holds the same running ones. One process takes the same code path
+    without the all-reduce."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if mesh.active():
-            return self._global_batch_norm(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self._update_running(mean, var)
-        return y
-
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        self.running_mean.copy_(FLAX_MOMENTUM * self.running_mean
-                                + (1.0 - FLAX_MOMENTUM) * mean)
-        self.running_var.copy_(FLAX_MOMENTUM * self.running_var
-                               + (1.0 - FLAX_MOMENTUM) * var)
-        self.num_batches_tracked.add_(1)
-
-    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
         n = x.numel() // c * mesh.world_size()  # every rank holds as many rows
         stats = mesh.all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)),
@@ -96,6 +81,13 @@ class BatchNorm(nn.BatchNorm2d):
         with torch.no_grad():
             self._update_running(mean, var)
         return y
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.copy_(FLAX_MOMENTUM * self.running_mean
+                                + (1.0 - FLAX_MOMENTUM) * mean)
+        self.running_var.copy_(FLAX_MOMENTUM * self.running_var
+                               + (1.0 - FLAX_MOMENTUM) * var)
+        self.num_batches_tracked.add_(1)
 
 
 def _downsample(in_ch: int, out_ch: int, stride: int):

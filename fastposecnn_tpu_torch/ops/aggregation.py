@@ -15,8 +15,7 @@ import torch
 from fastposecnn_tpu_torch.geometry import safe_normalize
 from fastposecnn_tpu_torch.ops.connected_components import (
     extract_instances,
-    label_components,
-    new_error_flag,
+    label_components_deferred,
 )
 
 _INT32_MAX = 2**31 - 1
@@ -34,8 +33,7 @@ def aggregate_instances(cat_data: Dict[str, torch.Tensor], max_instances: int,
     cat_mask = cat_data["mask"]
     b, h, w = cat_mask.shape
     hw = h * w
-    cc_error = new_error_flag(cat_mask)
-    labels = label_components(cat_mask != 0, impl=impl, err=cc_error)
+    labels, cc_error = label_components_deferred(cat_mask != 0, impl=impl)
     masks, valid, roots = extract_instances(labels, max_instances)
     flat_masks = masks.reshape(b, max_instances, hw)
     safe_area = flat_masks.sum(-1).clamp_min(1.0)

@@ -2,20 +2,28 @@
 (counterpart of the JAX package's `ops/connected_components.py`).
 
 Every foreground pixel is labelled with the smallest row-major linear index
-of its component; background is -1. `label_components` sends a CUDA tensor
-to the hand-written kernel `kernels/cc_label.cu` and a CPU tensor to the
-plain version `label_components_reference`; `impl="reference"` forces the
-plain version on either device.
+of its component; background is -1.
 
-The kernel sets an error flag on the device when a loop passes its step
-bound. Reading it waits for the device, so a caller that enqueues more work
-passes its own flag (`new_error_flag`) and reads it once at its end with
-`raise_on_error_flag`; without one, the wrapper reads it at once.
+The custom op `fastposecnn::cc_label` (`torch.library`) sends a CUDA tensor
+to the hand-written kernel `kernels/cc_label.cu` and a CPU tensor to the
+plain version `label_components_reference`, and returns (labels, error
+flag); a `register_fake` gives their shapes and dtypes, so `torch.export`
+records the op in a program (`utils/export.py`) and the loaded program
+launches the kernel on the card. `label_components` and
+`label_components_deferred` go through the op; `impl="reference"` forces
+the plain version on either device.
+
+The kernel sets its error flag (int32 [1]) on the device when a loop passes
+its step bound. Reading it waits for the device, so an entry point that
+enqueues more work takes the flag unread from `label_components_deferred`
+and reads it once at its end with `raise_on_error_flag`;
+`label_components` reads it at once. The plain version sets no flag (a
+zero).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -105,20 +113,50 @@ def label_components_cuda(fg: torch.Tensor,
     return out
 
 
-def label_components(fg: torch.Tensor, impl: Optional[str] = None,
-                     err: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """fg [B, H, W] -> [B, H, W] int32 root index / -1. CUDA tensors go to
-    the kernel (which sets `err` when given, see `label_components_cuda`),
-    CPU tensors to the plain version, which sets no flag."""
-    if impl == "reference":
-        return label_components_reference(fg)
-    if impl is not None:
+@torch.library.custom_op("fastposecnn::cc_label", mutates_args=(), device_types="cpu")
+def cc_label(fg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fg [B, H, W] -> (labels [B, H, W] int32 root index / -1, error flag
+    int32 [1]). This body is the op's CPU implementation: the plain
+    version, whose flag is always clear."""
+    return label_components_reference(fg), torch.zeros(1, dtype=torch.int32)
+
+
+@cc_label.register_kernel("cuda")
+def _cc_label_cuda(fg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    err = new_error_flag(fg)
+    return label_components_cuda(fg, err), err
+
+
+@cc_label.register_fake
+def _cc_label_fake(fg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (fg.new_empty(fg.shape, dtype=torch.int32),
+            fg.new_empty((1,), dtype=torch.int32))
+
+
+def _check_impl(fg: torch.Tensor, impl: Optional[str]) -> None:
+    if impl not in (None, "reference"):
         raise ValueError(f"unknown impl {impl!r}")
-    if fg.is_cuda:
-        return label_components_cuda(fg, err)
-    if fg.device.type == "cpu":
-        return label_components_reference(fg)
-    raise ValueError(f"unsupported device {fg.device}")
+    if fg.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {fg.device}")
+
+
+def label_components_deferred(fg: torch.Tensor, impl: Optional[str] = None
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """fg [B, H, W] -> (labels, the kernel's error flag unread: a CUDA
+    int32 [1] tensor, or None from the plain version)."""
+    _check_impl(fg, impl)
+    if impl == "reference":
+        return label_components_reference(fg), None
+    labels, err = cc_label(fg)
+    return labels, (err if fg.is_cuda else None)
+
+
+def label_components(fg: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
+    """fg [B, H, W] -> [B, H, W] int32 root index / -1, through the op; on
+    CUDA the kernel's error flag is read at once."""
+    labels, err = label_components_deferred(fg, impl)
+    raise_on_error_flag(err)
+    return labels
 
 
 def extract_instances(labels: torch.Tensor, max_instances: int):

@@ -11,7 +11,8 @@ generators.
 
 The adaptive loop runs on the host: before each round it reads one flag
 from the device (all active slots confident), so a batch costs at most
-`max_iter` + 1 host syncs.
+`max_iter` + 1 host syncs. Traced by `torch.export`, it is one
+`while_loop` higher-order op instead.
 
 Voting passes no gradient, as in the JAX package (`ops/voting.py:529-535`,
 :573, :660-661): the sampled points and directions, the refinements' inlier
@@ -289,23 +290,42 @@ def vote_counts_cuda(hyps, pts, dirs, pvalid, inlier_thresh: float,
     return out
 
 
+@torch.library.custom_op("fastposecnn::vote_count", mutates_args=(), device_types="cpu")
+def vote_count(hyps: torch.Tensor, pts: torch.Tensor, dirs: torch.Tensor,
+               pvalid: torch.Tensor, active: Optional[torch.Tensor],
+               inlier_thresh: float) -> torch.Tensor:
+    """The custom op of K2 (`torch.library`): inlier counts [M, H]. This
+    body is its CPU implementation, the plain version; CUDA tensors go to
+    the kernel. A `register_fake` gives the output's shape, so
+    `torch.export` records the op in a program (`utils/export.py`)."""
+    return vote_counts_reference(hyps, pts, dirs, pvalid, inlier_thresh, active)
+
+
+@vote_count.register_kernel("cuda")
+def _vote_count_cuda(hyps, pts, dirs, pvalid, active, inlier_thresh):
+    return vote_counts_cuda(hyps, pts, dirs, pvalid, inlier_thresh, active)
+
+
+@vote_count.register_fake
+def _vote_count_fake(hyps, pts, dirs, pvalid, active, inlier_thresh):
+    return hyps.new_empty(hyps.shape[:2], dtype=torch.float32)
+
+
 def vote_counts(hyps, pts, dirs, pvalid, inlier_thresh: float,
                 active: Optional[torch.Tensor] = None,
                 impl: Optional[str] = None) -> torch.Tensor:
-    """Inlier counts [M, H]. CUDA tensors go to the kernel, CPU tensors to
-    the plain version; `impl="reference"` forces the plain version. A slot
-    whose `active` is False counts zero."""
+    """Inlier counts [M, H] through the op `fastposecnn::vote_count`: CUDA
+    tensors go to the kernel, CPU tensors to the plain version;
+    `impl="reference"` forces the plain version. A slot whose `active` is
+    False counts zero."""
     if impl == "reference":
         return vote_counts_reference(hyps, pts, dirs, pvalid, inlier_thresh,
                                      active)
     if impl is not None:
         raise ValueError(f"unknown impl {impl!r}")
-    if hyps.is_cuda:
-        return vote_counts_cuda(hyps, pts, dirs, pvalid, inlier_thresh, active)
-    if hyps.device.type == "cpu":
-        return vote_counts_reference(hyps, pts, dirs, pvalid, inlier_thresh,
-                                     active)
-    raise ValueError(f"unsupported device {hyps.device}")
+    if hyps.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {hyps.device}")
+    return vote_count(hyps, pts, dirs, pvalid, active, float(inlier_thresh))
 
 
 # -----------------------------------------------------------------------------
@@ -422,15 +442,33 @@ def ransac_vote_centers(pts, dirs, npts, active, pt_valid, shifts,
     return centers, best_ratio, hyps
 
 
-def slot_confident(best_ratio: torch.Tensor, rounds: int, round_hyp_num: int,
+def slot_confident(best_ratio: torch.Tensor, rounds, round_hyp_num: int,
                    confidence: float) -> torch.Tensor:
     """The adaptive loop's exit test per slot, on the device:
     1 - (1 - r^2)^(rounds * H) > confidence. Float32, in the JAX order
-    (`ops/voting.py:698-703`): r*r, 1 - that, a float32 power, 1 - that."""
+    (`ops/voting.py:698-703`): r*r, 1 - that, a float32 power, 1 - that.
+    `rounds` is an int, or an int64 scalar tensor in a traced loop."""
     base = 1.0 - best_ratio * best_ratio
-    hyp_num = torch.full_like(base, float(np.float32(rounds * round_hyp_num)))
+    if isinstance(rounds, torch.Tensor):  # a traced loop's counter
+        hyp_num = (rounds * round_hyp_num).to(base.dtype).expand_as(base)
+    else:
+        hyp_num = torch.full_like(base, float(np.float32(rounds * round_hyp_num)))
     conf = 1.0 - torch.pow(base, hyp_num)
-    return conf > torch.tensor(confidence, dtype=conf.dtype, device=conf.device)
+    return conf > torch.full((), confidence, dtype=conf.dtype, device=conf.device)
+
+
+def _vote_round(pts, dirs, pvalid, active, count_denom, idx, inlier_thresh, impl,
+                best_pts, best_ratio):
+    """One adaptive round on the point pairs `idx` [M, H, 2]: (its
+    hypotheses, the best winners and ratios so far; strictly better ratios
+    replace a slot's winner)."""
+    hyps = generate_hypotheses(pts, dirs, idx)
+    counts = vote_counts(hyps, pts, dirs, pvalid, inlier_thresh, active=active, impl=impl)
+    win_pts, win_counts = _pick_winners(hyps, counts)
+    ratio = win_counts / count_denom
+    better = ratio > best_ratio
+    return (hyps, torch.where(better[:, None], win_pts, best_pts),
+            torch.maximum(best_ratio, ratio))
 
 
 def ransac_vote_centers_adaptive(
@@ -447,9 +485,14 @@ def ransac_vote_centers_adaptive(
     from `generator` when `pairs` is None. A slot keeps its best winner
     over the rounds (strictly better ratios replace it).
 
-    Inside a process group (`parallel.mesh`) the loop runs while a slot of
-    any rank is not confident, as the JAX loop over the global batch does,
-    so every rank runs the same rounds.
+    Run eagerly, the loop runs on the host and reads one flag a round.
+    Inside a process group (`parallel.mesh`) it runs while a slot of any
+    rank is not confident, as the JAX loop over the global batch does, so
+    every rank runs the same rounds. Under `torch.export` (or another
+    trace, `torch.compiler.is_compiling()`) it is one `while_loop`
+    higher-order op, as JAX traces one `lax.while_loop`: the exported
+    program loops on the device's flag, with `pairs` baked in, and the
+    rounds run come back as an int64 scalar tensor.
 
     Returns (centers [M, 2], win_ratio [M], the last round's hypotheses
     [M, H, 2] (zeros if no round ran), rounds run)."""
@@ -459,31 +502,48 @@ def ransac_vote_centers_adaptive(
     active = active & (npts >= _MIN_POINTS)
     pvalid = (pt_valid & active[:, None]).float()
     count_denom = pvalid.sum(-1).clamp_min(1.0)
+    fixed = (pts, dirs, pvalid, active, count_denom)
 
     best_pts = torch.zeros((m, 2), dtype=torch.float32, device=pts.device)
     best_ratio = torch.zeros((m,), dtype=torch.float32, device=pts.device)
     last_hyps = torch.zeros((m, round_hyp_num, 2), dtype=torch.float32,
                             device=pts.device)
-    rounds = 0
-    while rounds < max_iter and not mesh.all_ranks_true(torch.where(
-            active, slot_confident(best_ratio, rounds, round_hyp_num,
-                                   confidence), True).all()):
-        if pairs is not None:
-            idx = pairs[rounds].to(device=pts.device, dtype=torch.int64)
-        else:
-            idx = mesh.rank_rows(torch.randint(
-                0, p, (m * mesh.world_size(), round_hyp_num, 2),
-                generator=generator, device=pts.device))
-        hyps = generate_hypotheses(pts, dirs, idx)
-        counts = vote_counts(hyps, pts, dirs, pvalid, inlier_thresh,
-                             active=active, impl=impl)
-        win_pts, win_counts = _pick_winners(hyps, counts)
-        ratio = win_counts / count_denom
-        better = ratio > best_ratio
-        best_pts = torch.where(better[:, None], win_pts, best_pts)
-        best_ratio = torch.maximum(best_ratio, ratio)
-        last_hyps = hyps
-        rounds += 1
+
+    def confident(best_ratio, rounds):
+        return torch.where(active, slot_confident(best_ratio, rounds, round_hyp_num,
+                                                  confidence), True).all()
+
+    if torch.compiler.is_compiling():
+        from torch._higher_order_ops.while_loop import while_loop
+
+        if pairs is None:
+            raise ValueError("a traced adaptive vote needs its `pairs`")
+        pairs = pairs.to(device=pts.device, dtype=torch.int64)
+
+        def cond(rounds, best_pts, best_ratio, last_hyps):
+            return (rounds < max_iter) & ~confident(best_ratio, rounds)
+
+        def body(rounds, best_pts, best_ratio, last_hyps):
+            idx = pairs.index_select(0, rounds.reshape(1))[0]
+            hyps, best_pts, best_ratio = _vote_round(*fixed, idx, inlier_thresh, impl,
+                                                     best_pts, best_ratio)
+            return rounds + 1, best_pts, best_ratio, hyps
+
+        rounds = torch.zeros((), dtype=torch.int64, device=pts.device)
+        rounds, best_pts, best_ratio, last_hyps = while_loop(
+            cond, body, (rounds, best_pts, best_ratio, last_hyps))
+    else:
+        rounds = 0
+        while rounds < max_iter and not mesh.all_ranks_true(confident(best_ratio, rounds)):
+            if pairs is not None:
+                idx = pairs[rounds].to(device=pts.device, dtype=torch.int64)
+            else:
+                idx = mesh.rank_rows(torch.randint(
+                    0, p, (m * mesh.world_size(), round_hyp_num, 2),
+                    generator=generator, device=pts.device))
+            last_hyps, best_pts, best_ratio = _vote_round(*fixed, idx, inlier_thresh, impl,
+                                                          best_pts, best_ratio)
+            rounds += 1
 
     if refine == "sampled":
         best_pts = refine_centers(best_pts, pts, dirs, pvalid, inlier_thresh)

@@ -26,8 +26,9 @@ kernel, written in its plain version's order, is also exactly equal to it.
 For each shape of `SHAPES` (`make_inputs`, the TPU script's data, seed 0)
 `main` prints one JSON line per kernel (K2, P1, P2): its time (CUDA events around
 50 back-to-back launches, median of 5, and device time from torch.profiler),
-its plain version's time, its bound, how far its counts are from K2's, and
-whether they lie in the band. Each kernel's wrapper is called once per
+its plain version's time, its bound, for P1 the time of its two products
+as float32 `torch.matmul`s (`library_us`, TF32 off), how far its counts are
+from K2's, and whether they lie in the band. Each kernel's wrapper is called once per
 shape (counted); the timed launches go through the C entry points and are
 not counted.
 """
@@ -133,25 +134,30 @@ def _count(dot, vsq, pv, t2):
 # Plain versions
 
 
+def expanded_operands(hyps, pts, dirs):
+    """The stacked operands of `kernel_b`: (hd [M,H,3], pd [M,3,P],
+    hmat [M,H,5], pmat [M,5,P]); dot = hd @ pd, |v|^2 = hmat @ pmat."""
+    hx, hy = hyps[..., 0], hyps[..., 1]
+    ones = torch.ones_like(hx)
+    px, py = pts[..., 0], pts[..., 1]
+    dx, dy = dirs[..., 0], dirs[..., 1]
+    ones_p = torch.ones_like(px)
+    return (torch.stack([hx, hy, ones], dim=-1),
+            torch.stack([dx, dy, -(px * dx + py * dy)], dim=-2),
+            torch.stack([hx * hx, hy * hy, hx, hy, ones], dim=-1),
+            torch.stack([ones_p, ones_p, -2 * px, -2 * py, px * px + py * py], dim=-2))
+
+
 def vote_counts_expanded_mm_reference(hyps, pts, dirs, pvalid,
                                       inlier_thresh: float = INLIER_THRESH):
     """Plain version of P1: the stacked operands of `kernel_b` and two
     float32 `torch.matmul`s, chunked over P. hyps [M,H,2], pts/dirs [M,P,2],
     pvalid [M,P] -> counts [M,H]."""
     t2 = torch.tensor(thresh_sq(inlier_thresh), device=hyps.device)
-    hx, hy = hyps[..., 0], hyps[..., 1]
-    ones = torch.ones_like(hx)
-    hd = torch.stack([hx, hy, ones], dim=-1)
-    hmat = torch.stack([hx * hx, hy * hy, hx, hy, ones], dim=-1)
-    acc = torch.zeros(hx.shape, dtype=torch.float32, device=hyps.device)
+    acc = torch.zeros(hyps.shape[:2], dtype=torch.float32, device=hyps.device)
     for s in range(0, pts.shape[1], _P_CHUNK):
         c = slice(s, s + _P_CHUNK)
-        px, py = pts[:, c, 0], pts[:, c, 1]
-        dx, dy = dirs[:, c, 0], dirs[:, c, 1]
-        ones_p = torch.ones_like(px)
-        pd = torch.stack([dx, dy, -(px * dx + py * dy)], dim=-2)
-        pmat = torch.stack([ones_p, ones_p, -2 * px, -2 * py, px * px + py * py],
-                           dim=-2)
+        hd, pd, hmat, pmat = expanded_operands(hyps, pts[:, c], dirs[:, c])
         acc = acc + _count(torch.matmul(hd, pd), torch.matmul(hmat, pmat),
                            pvalid[:, None, c], t2)
     return acc
@@ -406,10 +412,16 @@ def probe_shape(m: int, h: int, p: int, device: torch.device) -> List[Dict]:
             line.update(us=loop_ms(call) * 1e3,
                         device_us=sum(by_kernel.values()) if by_kernel else None,
                         plain_us=median_ms(lambda: plain(*args), iters=5, warmup=1) * 1e3,
-                        bound_us=b_us, bound_by=by)
+                        bound_us=b_us, bound_by=by, library_us=None)
+            if name == "vote_expanded_mm":  # its matrix part as float32 torch.matmul
+                hd, pd, hmat, pmat = expanded_operands(*args[:3])
+                line["library_us"] = median_ms(
+                    lambda: (torch.matmul(hd, pd), torch.matmul(hmat, pmat)),
+                    iters=5, warmup=1) * 1e3
+                del hd, pd, hmat, pmat
         else:
             line.update(us=None, device_us=None, plain_us=None, bound_us=None,
-                        bound_by=None)
+                        bound_by=None, library_us=None)
         lines.append(line)
     return lines
 

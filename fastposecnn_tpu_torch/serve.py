@@ -30,6 +30,7 @@ from fastposecnn_tpu_torch.device import DeviceLike, full_float32, resolve_devic
 from fastposecnn_tpu_torch.models import PoseRegressorNet
 from fastposecnn_tpu_torch.models.weights import init_random_
 from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
+from fastposecnn_tpu_torch.ops.voting import VoteDraws
 from fastposecnn_tpu_torch.pipeline import run_pipeline
 from fastposecnn_tpu_torch.train.checkpoint import load_weights, merge_arch_from_any
 
@@ -63,14 +64,14 @@ class InferenceServer:
         self.cpu_generator = torch.Generator().manual_seed(seed + 1)
 
     @torch.inference_mode()
-    def enqueue(self, image: torch.Tensor):
+    def enqueue(self, image: torch.Tensor, draws: Optional[VoteDraws] = None):
         """Every stage of `__call__` on one image, enqueued without reading
         anything back: returns (answer, the CC kernel's unread error flag,
         None on the CPU)."""
         image = image.to(self.device, torch.float32)
         with full_float32():
             logits = self.net(image)
-            out = run_pipeline(logits, self.config, self.inv_K,
+            out = run_pipeline(logits, self.config, self.inv_K, draws=draws,
                                generator=self.generator,
                                cpu_generator=self.cpu_generator)
         agg = out["aggregated"]
@@ -78,11 +79,13 @@ class InferenceServer:
                   agg["z"], agg["RT"])
         return answer, agg["cc_error"]
 
-    def __call__(self, image: torch.Tensor):
+    def __call__(self, image: torch.Tensor, draws: Optional[VoteDraws] = None):
         """image [B, 3, H, W] float32 -> (mask [B, H, W] int32,
         class_ids [B, K] int32, xy [B, K, 2], z [B, K], RT [B, K, 4, 4]),
-        computed in full float32. The CC kernel's error flag is read once,
-        after every stage is enqueued, and raises if set."""
-        answer, cc_error = self.enqueue(image)
+        computed in full float32. The vote's random draws are `draws` (a
+        `VoteDraws`, as an exported program fixes them) or come from the
+        server's generators. The CC kernel's error flag is read once, after
+        every stage is enqueued, and raises if set."""
+        answer, cc_error = self.enqueue(image, draws)
         raise_on_error_flag(cc_error)
         return answer

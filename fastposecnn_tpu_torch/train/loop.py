@@ -23,7 +23,14 @@ global batch, gathered); a resume loads on rank 0 and `replicate`s. A
 `BATCH_SIZE` that the ranks do not divide raises before the first step. A
 global batch with no real sample is skipped by every rank.
 
-Not ported: the per-epoch visualisations (they need matplotlib and PIL).
+Each epoch (`visualize_every`), the first validation batch's first
+samples are drawn as figures (`log_epoch_visualizations`: masks, voted
+centres, poses; the JAX loop's, FPC/callbacks.py:262-523) into TensorBoard
+and `visualizations/epoch<E>_s<i>.png` (written by `data/png.py`), by rank
+0 from its rows. They need matplotlib and cv2: without them the loop says
+so once and trains without figures; as in the JAX loop, a failure to draw
+is reported (printed, and logged with its traceback in run.log) and never
+stops training.
 """
 
 from __future__ import annotations
@@ -141,13 +148,68 @@ def _save_fault_batch(run_dir, step, batch, flog):
     flog.warning("non-finite gradients at step %d; batch saved to %s", step, path)
 
 
+def log_epoch_visualizations(logger: RunLogger, out, batch, hp: HParams, epoch: int,
+                             run_dir: pathlib.Path, num_samples: int = 3) -> None:
+    """Figures of the first `num_samples` samples of a validation batch
+    (numpy, as the loader gives it) and the eval step's pipeline output
+    `out`: the image, the GT and predicted masks, the voted centres against
+    the GT ones and the GT and predicted poses, into TensorBoard and
+    `run_dir/visualizations/epoch<E>_s<i>.png` (FPC/callbacks.py:262-523;
+    the JAX package's `train/loop.py:94-150`)."""
+    from fastposecnn_tpu_torch import constants
+    from fastposecnn_tpu_torch.data.png import encode_png
+    from fastposecnn_tpu_torch.utils import visualize as vz
+
+    intr = constants.scaled_intrinsics(hp.DATASET_NAME, hp.IMAGE_HEIGHT, hp.IMAGE_WIDTH)
+    pred_mask = out["categorical"]["mask"].cpu().numpy()
+    agg = out.get("aggregated")
+    agg = None if agg is None else {k: v.cpu().numpy() for k, v in agg.items()
+                                    if k in ("xy", "valid", "RT", "scales")}
+    viz_dir = run_dir / "visualizations"
+    viz_dir.mkdir(exist_ok=True)
+    for i in range(min(num_samples, batch["image"].shape[0])):
+        img = vz.denormalize_image(np.asarray(batch["image"][i]))
+        panels = {"rgb": img,
+                  "gt_mask": vz.colorize_mask(np.asarray(batch["mask"][i]), hp.num_classes),
+                  "pred_mask": vz.colorize_mask(pred_mask[i], hp.num_classes)}
+        if agg is not None and "xy" in agg:
+            panels["hough"] = vz.visualize_hypothesis(
+                img, agg["xy"][i], agg["valid"][i],
+                gt_centers=np.asarray(batch["agg"]["xy"][i]))
+        if agg is not None and "RT" in agg:
+            panels["pose"] = vz.compare_pose_performance(
+                img, np.asarray(batch["agg"]["RT"][i]), np.asarray(batch["agg"]["scales"][i]),
+                agg["RT"][i], agg["scales"][i],
+                np.asarray(batch["agg"]["valid"][i]) & agg["valid"][i], intr)
+        arr = vz.figure_to_array(vz.make_summary_figure(**panels))
+        logger.log_image("valid", f"epoch_viz/sample_{i}", arr / 255.0, epoch)
+        encode_png(viz_dir / f"epoch{epoch}_s{i}.png", np.ascontiguousarray(arr))
+
+
+def _visualizations_available(flog) -> bool:
+    """Whether the packages the per-epoch figures need import; if not, says
+    so once (printed and in run.log)."""
+    from fastposecnn_tpu_torch.utils.optional import need, pyplot
+
+    try:
+        pyplot("the per-epoch visualisations")
+        need("cv2", "the per-epoch visualisations")
+    except ImportError as e:
+        print(f"visualizations off: {e}", flush=True)
+        flog.warning("visualizations off: %s", e)
+        return False
+    return True
+
+
 def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
         run_dir: Optional[pathlib.Path] = None, device=None, enable_tb: bool = True,
-        num_epochs: Optional[int] = None, resume_from: Optional[str] = None):
+        num_epochs: Optional[int] = None, resume_from: Optional[str] = None,
+        visualize_every: int = 1):
     """Train `num_epochs` (default `hp.NUM_EPOCHS`) epochs on `device` (CUDA
     unless "cpu" is given), from seeded random weights or `resume_from` (a
     full checkpoint, with its optimizer; or the weights of an npz snapshot or
-    a reference torch checkpoint, the optimizer re-derived from them).
+    a reference torch checkpoint, the optimizer re-derived from them), with
+    the per-epoch visualisations every `visualize_every` epochs (0: none).
     Returns (final TrainState, run_dir)."""
     device = resolve_device(device)
     ranks, lead = mesh.world_size(), mesh.rank() == 0
@@ -181,6 +243,8 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
         train_step = make_train_step(net, optimizer, hp, pcfg, inv_intrinsics, device)
         eval_step = make_eval_step(net, hp, pcfg, inv_intrinsics, device)
 
+        if visualize_every and lead and not _visualizations_available(flog):
+            visualize_every = 0
         plateau = optim.plateau_init()
         best_val = math.inf
         ckpt_dir = run_dir / "checkpoints"
@@ -221,13 +285,21 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
             # ---- validate ----
             bank = M.init_pose_metric_bank(device)
             pending_val, val_weights = [], []
+            visualize = lead and visualize_every and epoch % visualize_every == 0
             for batch in valid_loader:
                 batch, n_real = _rank_batch(batch, hp, device)
                 if batch is None:
                     continue
                 val_weights.append(n_real)
-                logs, bank, _ = eval_step(state, batch, bank, seed=epoch)
+                logs, bank, out = eval_step(state, batch, bank, seed=epoch)
                 pending_val.append(logs)
+                if visualize:
+                    visualize = False
+                    try:
+                        log_epoch_visualizations(logger, out, batch, hp, epoch, run_dir)
+                    except Exception as e:  # drawing never stops training
+                        print(f"visualization failed: {e}", flush=True)
+                        flog.exception("visualization failed at epoch %d", epoch)
             val_logs = fetch_logs(pending_val)
             for lg in val_logs:
                 logger.log_metrics("valid", lg, host_step)

@@ -55,6 +55,11 @@ class RunLogger:
         self._accum[mode].clear()
         return out
 
+    def log_image(self, mode: str, tag: str, image, step: int):
+        """An image, [H, W, C] float in [0, 1] or uint8."""
+        if self.enabled:
+            self._writers[mode].add_image(tag, image, step, dataformats="HWC")
+
     def log_hparams(self, hparams: Dict[str, object], metrics: Dict[str, float]):
         """Final hparams dump (FPC/callbacks.py:541-568)."""
         if self.enabled:

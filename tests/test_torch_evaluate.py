@@ -152,9 +152,14 @@ def test_evaluate_cli_runs_on_cpu_and_skips_phase_a_on_rerun(tmp_path, capsys):
     assert summary["frames"] == 3 and summary["batches"] == 2
     assert set(summary["stage_ms"]) == set(tev.STAGES)
     assert (out / "raw_errors_10000.npz").is_file()
-    tables = out / "10000_aps_values_table"
+    tables = out / "10000_aps_values_table"  # CSV: no Excel engine here
     assert sorted(p.name for p in tables.iterdir()) == sorted(
-        [f"{m}.csv" for m in tev.METRICS] + ["degree_error+offset_error.csv", "aps.json"])
+        [f"{m}.csv" for m in tev.METRICS] + ["degree_error+offset_error.csv"])
+    assert summary["ap_tables"] == str(tables)
+    curves = out / "10000_aps_curves"
+    assert sorted(p.name for p in curves.iterdir()) == sorted(f"{m}.csv" for m in tev.METRICS)
+    assert summary["ap_curves"] == str(curves)
+    assert summary["ap_plot"] == str(out / "all_metrics_10000_aps.png")
     again = tev.main(SMALL + ["--device", "cpu", "--output", str(out)])
     assert "phase A skipped" in capsys.readouterr().out
     assert again["table_aps_mean"] == summary["table_aps_mean"]

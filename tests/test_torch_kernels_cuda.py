@@ -16,9 +16,9 @@ from fastposecnn_tpu_torch import kernels
 from fastposecnn_tpu_torch.ops.connected_components import (
     label_components,
     label_components_cuda,
-    new_error_flag,
+    label_components_deferred,
 )
-from fastposecnn_tpu_torch.ops.voting import vote_counts
+from fastposecnn_tpu_torch.ops.voting import vote_counts, vote_counts_reference
 from fastposecnn_tpu_torch.pipeline import PipelineConfig, run_pipeline
 from fastposecnn_tpu_torch.probes import vote_variants as V
 
@@ -76,13 +76,12 @@ def test_cc_kernel_matches_reference(cuda_device, name):
 
 
 def test_cc_kernel_defers_its_flag(cuda_device):
-    """Given a flag, the wrapper leaves it unread (and clear on a good
-    mask); a flag of the wrong type or device is refused."""
+    """The op hands its flag back unread (and clear on a good mask); the
+    wrapper refuses a flag of the wrong type or device."""
     fg = torch.from_numpy(_masks()["random"]).to(cuda_device)
-    err = new_error_flag(fg)
-    got = label_components(fg, err=err)
+    got, err = label_components_deferred(fg)
     assert torch.equal(got, label_components(fg, impl="reference"))
-    assert int(err.item()) == 0
+    assert err.is_cuda and err.dtype == torch.int32 and int(err.item()) == 0
     with pytest.raises(ValueError):
         label_components_cuda(fg, err=torch.zeros(1, dtype=torch.int64, device=cuda_device))
     with pytest.raises(ValueError):
@@ -250,3 +249,61 @@ def test_adaptive_pipeline_kernels_match_reference(cuda_device, sampler, refine)
         assert torch.equal(got[key], want[key]), key
     for key in ("xy", "z", "RT"):
         torch.testing.assert_close(got[key], want[key], atol=2e-4, rtol=1e-4)
+
+
+def test_custom_ops_launch_the_kernels(cuda_device):
+    """`fastposecnn::cc_label` and `fastposecnn::vote_count` on CUDA tensors
+    launch K1 and K2 (counted once each) and equal the plain versions."""
+    rng = np.random.default_rng(5)
+    fg = torch.from_numpy(_masks()["random_odd_width"]).to(cuda_device)
+    m, h, p = 5, 100, 300
+    hyps, pts = (torch.from_numpy(rng.uniform(0, 32, size=(m, n, 2)).astype(np.float32))
+                 .to(cuda_device) for n in (h, p))
+    dirs = torch.nn.functional.normalize(torch.randn(m, p, 2), dim=-1).to(cuda_device)
+    pvalid = (torch.rand(m, p) > 0.1).float().to(cuda_device)
+    active = torch.tensor([True, False, True, True, False], device=cuda_device)
+    before = kernels.launch_counts()
+    labels, err = torch.ops.fastposecnn.cc_label(fg)
+    counts = torch.ops.fastposecnn.vote_count(hyps, pts, dirs, pvalid, active, 0.999)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["cc_label"] == before["cc_label"] + 1
+    assert after["vote_count"] == before["vote_count"] + 1
+    assert int(err.item()) == 0 and err.device == fg.device
+    assert torch.equal(labels, label_components(fg, impl="reference"))
+    assert torch.equal(counts, vote_counts_reference(hyps, pts, dirs, pvalid, 0.999, active))
+
+
+@pytest.mark.parametrize("adaptive", [True, False], ids=["adaptive", "single_shot"])
+def test_exported_pipeline_launches_the_kernels(cuda_device, tmp_path, adaptive):
+    """A pipeline exported on the card (64x64, 3 classes, 4 slots, 64
+    points, 16 hypotheses) and loaded back launches K1 once and K2 once a
+    vote round, and equals the eager pipeline on the same draws (mask and
+    class ids exactly, xy, z and RT at the golden tolerance)."""
+    from fastposecnn_tpu_torch.device import full_float32
+    from fastposecnn_tpu_torch.models import PoseRegressorNet
+    from fastposecnn_tpu_torch.models.weights import init_random_
+    from fastposecnn_tpu_torch.utils.export import export_forward, load_exported, make_draws
+
+    net = init_random_(PoseRegressorNet(num_classes=3), 0).to(cuda_device).eval()
+    pcfg = PipelineConfig(max_instances=4, max_points=64, hv_num_hypotheses=16,
+                          hv_adaptive=adaptive)
+    inv_k = np.linalg.inv(np.asarray([[60.0, 0, 32], [0, 60, 32], [0, 0, 1]]))
+    draws = make_draws(pcfg, 1, 0, cuda_device)
+    x = torch.randn((1, 3, 64, 64), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    fn = load_exported(export_forward(net, tmp_path / "p.pt2", image_shape=(1, 3, 64, 64),
+                                      pipeline_config=pcfg, inv_intrinsics=inv_k, draws=draws))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = fn(x)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    with torch.no_grad(), full_float32():
+        out = run_pipeline(net(x), pcfg, torch.as_tensor(inv_k, dtype=torch.float32,
+                                                         device=cuda_device), draws=draws)
+    agg = out["aggregated"]
+    assert launches["cc_label"] == 1 and launches["vote_count"] == agg["vote_rounds"]
+    assert torch.equal(got[0], out["categorical"]["mask"])
+    assert torch.equal(got[1], agg["class_ids"])
+    for g, w in zip(got[2:], (agg["xy"], agg["z"], agg["RT"])):
+        torch.testing.assert_close(g, w, atol=2e-4, rtol=1e-4)

@@ -114,7 +114,9 @@ def test_port_sources_import_no_jax():
                    "native/augment_lib.py", "utils/tb.py", "data/png.py",
                    "data/nocs_writer.py", "data/bank_pool.py", "train/staged.py",
                    "ops/voting_soft.py", "ops/voting_vp.py", "models/resnet.py",
-                   "parallel/mesh.py", "parallel/dryrun.py"):
+                   "parallel/mesh.py", "parallel/dryrun.py", "data/meta_plus.py",
+                   "cli/create_meta.py", "utils/export.py", "utils/draw.py",
+                   "utils/visualize.py", "utils/report.py", "utils/optional.py"):
         assert REPO / "fastposecnn_tpu_torch" / module in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

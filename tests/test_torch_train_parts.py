@@ -194,7 +194,8 @@ def test_perform_gates_match_jax(preset, monkeypatch):
             return fn(*a, **k)
         return wrapper
 
-    monkeypatch.setattr(TA, "label_components", counted(TA.label_components, "cc"))
+    monkeypatch.setattr(TA, "label_components_deferred",
+                        counted(TA.label_components_deferred, "cc"))
     monkeypatch.setattr(TV, "vote_counts", counted(TV.vote_counts, "vote"))
     logits, inv_k = _scene_logits()
     key = jax.random.key(0)
