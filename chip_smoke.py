@@ -37,7 +37,11 @@ steps, a step through the kernels against their plain versions, one
 epoch of the train CLI with `--ENCODER resnet50`), trains data-parallel
 (two ranks that share the card over gloo, each a process with its rows of
 a global batch of 4, held against the same 3 full-width HEAD_TRAINING
-steps in one process; one NCCL rank held against one step), exports the
+steps in one process; one NCCL rank held against one step), trains
+tensor-parallel (four ranks laid out dp 2 x tp 2 that share the card over
+gloo, the 59 wide convolutions' output channels and their optimizer state
+split over each tp pair, held against the same single-process steps),
+exports the
 served pipeline with `torch.export` (K1 and K2 as the custom ops
 `fastposecnn::cc_label` and `fastposecnn::vote_count`) and answers the
 served requests from the `.pt2` loaded in a fresh process, against
@@ -2473,9 +2477,11 @@ def dp_setup(batch, seed):
 def dp_steps(hp, data, inv_k, draws, dev, seed, steps=DP_STEPS):
     """`steps` train steps on `dev` from the weights of `seed` (inside a
     process group: this rank's rows of `data`; ranks other than 0 start
-    from other weights and `replicate` makes them rank 0's), each with its
-    injected draws of the global batch. Returns (state, logs, host ms a
-    step, the collectives' ms, count and longest ms a step, launches)."""
+    from other weights and `shard_state_tp` over the group's layout makes
+    them rank 0's, tp-sharded when the layout's tp is above 1), each with
+    its injected draws of the global batch. Returns (state, logs, host ms a
+    step, the collectives' ms, count and longest ms a step, launches, and
+    the all-reduces' and all-gathers' ms a step apart)."""
     import torch.distributed as dist
 
     from fastposecnn_tpu_torch import config as C
@@ -2488,24 +2494,28 @@ def dp_steps(hp, data, inv_k, draws, dev, seed, steps=DP_STEPS):
 
     net = init_random_(PoseRegressorNet(hp.num_classes), seed + mesh.rank()).to(dev)
     opt = T.make_optimizer(hp, net)
-    state = mesh.replicate(T.create_train_state(net, opt))
-    step = T.make_train_step(net, opt, hp, C.pipeline_config_from(hp), inv_k, dev)
+    state = mesh.shard_state_tp(T.create_train_state(net, opt), mesh.layout())
+    step = T.make_train_step(state.net, opt, hp, C.pipeline_config_from(hp), inv_k, dev)
     batch = T.upcast_batch(mesh.shard_batch(data), dev)
     spans = []
-    all_reduce = dist.all_reduce
+    originals = {"all_reduce": dist.all_reduce, "all_gather": dist.all_gather}
 
-    def timed_all_reduce(*args, **kwargs):  # the collective alone, the card idle
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = all_reduce(*args, **kwargs)
-        torch.cuda.synchronize()
-        spans.append(time.perf_counter() - t0)
-        return out
+    def timed(kind):
+        def collective(*args, **kwargs):  # the collective alone, the card idle
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[kind](*args, **kwargs)
+            torch.cuda.synchronize()
+            spans.append((kind, time.perf_counter() - t0))
+            return out
+        return collective
 
     logs, step_ms, coll_ms, coll_n, coll_max = [], [], [], [], []
+    by_kind = {kind: [] for kind in originals}
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    dist.all_reduce = timed_all_reduce
+    for kind in originals:
+        setattr(dist, kind, timed(kind))
     try:
         for d in draws[:steps]:
             dr = d["draws"]
@@ -2517,14 +2527,19 @@ def dp_steps(hp, data, inv_k, draws, dev, seed, steps=DP_STEPS):
                              draws=on_dev)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-            coll_ms.append(sum(spans) * 1e3)
+            coll_ms.append(sum(s for _, s in spans) * 1e3)
             coll_n.append(len(spans))
-            coll_max.append(max(spans, default=0.0) * 1e3)
+            coll_max.append(max((s for _, s in spans), default=0.0) * 1e3)
+            for kind, got in by_kind.items():
+                got.append(dict(n=sum(k == kind for k, _ in spans),
+                                ms=sum(s for k, s in spans if k == kind) * 1e3))
             spans.clear()
             logs.append({k: float(v) for k, v in lg.items()})
     finally:
-        dist.all_reduce = all_reduce
-    return state, logs, step_ms, (coll_ms, coll_n, coll_max), kernels.launch_counts()
+        for kind, fn in originals.items():
+            setattr(dist, kind, fn)
+    return (state, logs, step_ms, (coll_ms, coll_n, coll_max), kernels.launch_counts(),
+            by_kind)
 
 
 def state_digest(state) -> str:
@@ -2548,10 +2563,17 @@ def train_dp_rank(hp, data, inv_k, draws, seed, device, steps):
 
     dev = mesh.use_rank_device(device)
     probe = torch.full((2,), float(mesh.rank() + 1), device=dev)
-    summed = mesh.global_sum(probe)
+    summed = mesh.global_sum(probe, over="world")
     want = float(sum(range(1, mesh.world_size() + 1)))
     if summed.device != dev or summed.tolist() != [want, want]:
         raise AssertionError(f"{mesh.backend()} all-reduce of a CUDA tensor gave {summed}")
+    if mesh.tp_size() > 1:  # and an all-gather over the tp group
+        from fastposecnn_tpu_torch.parallel.tp import gather
+
+        group = mesh.layout().tp_groups()[mesh.dp_rank()]
+        got = gather(probe[:1])
+        if got.device != dev or got.tolist() != [float(r + 1) for r in group]:
+            raise AssertionError(f"{mesh.backend()} all-gather of a CUDA tensor gave {got}")
     load_library()
     # The TF32 flags are the process's own: the step must enter full float32
     # in this rank.
@@ -2566,18 +2588,88 @@ def train_dp_rank(hp, data, inv_k, draws, seed, device, steps):
 
     T.full_float32 = recorded_float32
     try:
-        state, logs, step_ms, (coll_ms, coll_n, coll_max), launches = dp_steps(
+        state, logs, step_ms, (coll_ms, coll_n, coll_max), launches, by_kind = dp_steps(
             hp, data, inv_k, draws, dev, seed, steps)
     finally:
         T.full_float32 = original
-    out = dict(rank=mesh.rank(), backend=mesh.backend(), device=str(dev),
+    out = dict(rank=mesh.rank(), coords=(mesh.dp_rank(), mesh.tp_rank()),
+               backend=mesh.backend(), device=str(dev),
                library_reused=build_info.get("reused"), logs=logs, step_ms=step_ms,
                collective_ms=coll_ms, collectives=coll_n, longest_collective_ms=coll_max,
-               launches=launches,
-               digest=state_digest(state), tf32_inside_steps=inside)
+               collectives_by_kind=by_kind, launches=launches,
+               digest=state_digest(state), tf32_inside_steps=inside,
+               **tp_shards(state))
+    whole = mesh.gather_state_tp(state)  # every rank of a tp group takes part
     if mesh.rank() == 0:
-        out["state_dict"] = {k: v.detach().cpu() for k, v in state.net.state_dict().items()}
+        out["state_dict"] = {k: v.detach().cpu() for k, v in whole.net.state_dict().items()}
+        out["opt"] = host_opt(whole)
     return out
+
+
+def host_opt(state):
+    """RAdam's moments and Lookahead's slow weights on the host."""
+    o = state.opt_state
+    return {part: {k: v.detach().cpu() for k, v in getattr(o, part).items()}
+            for part in ("mu", "nu", "slow")}
+
+
+def state_bytes(state):
+    """(parameter bytes, optimizer bytes: RAdam's moments and Lookahead's
+    slow weights) that `state` holds."""
+    o = state.opt_state
+    params = sum(p.numel() * p.element_size() for p in state.net.parameters())
+    opt = sum(t.numel() * t.element_size() for part in (o.mu, o.nu, o.slow)
+              for t in part.values())
+    return params, opt
+
+
+def tp_shards(state):
+    """This rank's tensor-parallel cut: the sharded convolutions, those
+    whose weight holds exactly cout / tp output channels, and the bytes it
+    holds."""
+    from fastposecnn_tpu_torch.parallel.tp import TPConv2d
+
+    convs = [m for m in state.net.modules() if isinstance(m, TPConv2d)]
+    params, opt = state_bytes(state)
+    return dict(tp_convs=len(convs),
+                tp_convs_at_cout_over_tp=sum(m.weight.shape[0] * m.tp == m.out_channels
+                                             for m in convs),
+                param_bytes=params, opt_bytes=opt)
+
+
+def hold_run(worst, what, got, want, band=0.0, rtol=1e-4):
+    """`got` against `want` at the golden tolerance (atol 2e-4, rtol 1e-4;
+    a float within `band` more and `rtol`); the worst difference of each
+    quantity kept in `worst`."""
+    if isinstance(got, float):
+        err, ok = abs(got - want), abs(got - want) <= band + 2e-4 + rtol * abs(want)
+    else:
+        err = float((got - want).abs().max())
+        ok = torch.allclose(got, want, atol=2e-4, rtol=1e-4)
+    key = what.split(" ")[-1]
+    worst[key] = max(worst.get(key, 0.0), err)
+    if not ok:
+        raise AssertionError(f"{what}: {got if isinstance(got, float) else err} "
+                             f"against {want if isinstance(want, float) else ''}")
+
+
+def hold_run_logs(worst, who, got_logs, want_logs):
+    """A run's logs step by step: the rounds exactly, every log at the
+    golden tolerance, the matched xy loss within `XY_BAND_LOSS`."""
+    for got, want in zip(got_logs, want_logs, strict=True):
+        if got["pose/vote_rounds"] != want["pose/vote_rounds"]:
+            raise AssertionError(f"{who}: rounds {got['pose/vote_rounds']} against "
+                                 f"{want['pose/vote_rounds']}")
+        for k, v in want.items():
+            if k == "xy/loss_xy":
+                hold_run(worst, f"{who} {k}", got[k], v, XY_BAND_LOSS, XY_RTOL_LOSS)
+            else:
+                hold_run(worst, f"{who} {k}", got[k], v)
+
+
+def hold_run_state(worst, what, got, want):
+    for k, v in want.items():
+        hold_run(worst, f"{k} {what}", got[k].float(), v.float())
 
 
 def phase_train_dp(dev, smi):
@@ -2599,7 +2691,8 @@ def phase_train_dp(dev, smi):
     process's in the same call, and the collectives' ms a step (each timed
     alone, the card synchronised around it). The two ranks share one card:
     their times are not a scaling result. Returns the launches of both
-    ranks."""
+    ranks, and this process's run (inputs, logs, state on the host, bytes)
+    for `phase_train_tp`."""
     from fastposecnn_tpu_torch.parallel import mesh
 
     hp, data, inv_k, draws = dp_setup(batch=4, seed=21)
@@ -2609,48 +2702,24 @@ def phase_train_dp(dev, smi):
                                                  DP_STEPS),
                         backend="gloo", deadline_s=DP_DEADLINE_S)
     dp_seconds = time.perf_counter() - phase_t0
-    state, logs, step_ms, _, launches = dp_steps(hp, data, inv_k, draws, dev, seed)
+    state, logs, step_ms, _, launches, _ = dp_steps(hp, data, inv_k, draws, dev, seed)
     single_sd = {k: v.detach().cpu() for k, v in state.net.state_dict().items()}
+    single = dict(inputs=(hp, data, inv_k, draws, seed), logs=logs, state_dict=single_sd,
+                  opt=host_opt(state), bytes=state_bytes(state), ms_per_step=step_ms)
     del state
     t0 = time.perf_counter()
     (nccl,) = mesh.launch(train_dp_rank, 1, (hp, data, inv_k, draws, seed, "cuda:0", 2),
                           backend="nccl", deadline_s=DP_DEADLINE_S)
     nccl_seconds = time.perf_counter() - t0
-    state2, first_logs, first_ms, _, _ = dp_steps(hp, data, inv_k, draws, dev, seed, steps=2)
+    state2, first_logs, first_ms, _, _, _ = dp_steps(hp, data, inv_k, draws, dev, seed,
+                                                     steps=2)
     first_sd = {k: v.detach().cpu() for k, v in state2.net.state_dict().items()}
     del state2
 
     worst = {}
-
-    def hold(what, got, want, band=0.0, rtol=1e-4):
-        if isinstance(got, float):
-            err, ok = abs(got - want), abs(got - want) <= band + 2e-4 + rtol * abs(want)
-        else:
-            err = float((got - want).abs().max())
-            ok = torch.allclose(got, want, atol=2e-4, rtol=1e-4)
-        worst[what.split(" ")[-1]] = max(worst.get(what.split(" ")[-1], 0.0), err)
-        if not ok:
-            raise AssertionError(f"{what}: {got if isinstance(got, float) else err} "
-                                 f"against {want if isinstance(want, float) else ''}")
-
-    def hold_logs(who, got_logs, want_logs):
-        for got, want in zip(got_logs, want_logs, strict=True):
-            if got["pose/vote_rounds"] != want["pose/vote_rounds"]:
-                raise AssertionError(f"{who}: rounds {got['pose/vote_rounds']} against "
-                                     f"{want['pose/vote_rounds']}")
-            for k, v in want.items():
-                if k == "xy/loss_xy":
-                    hold(f"{who} {k}", got[k], v, XY_BAND_LOSS, XY_RTOL_LOSS)
-                else:
-                    hold(f"{who} {k}", got[k], v)
-
-    def hold_state(what, got, want):
-        for k, v in want.items():
-            hold(f"{k} {what}", got[k].float(), v.float())
-
     rounds = [int(lg["pose/vote_rounds"]) for lg in logs]
     for r in ranks:
-        hold_logs(f"rank {r['rank']}", r["logs"], logs)
+        hold_run_logs(worst, f"rank {r['rank']}", r["logs"], logs)
         if (r["launches"]["cc_label"] != DP_STEPS
                 or r["launches"]["vote_count"] != sum(rounds)):
             raise AssertionError(f"rank {r['rank']} launches {r['launches']}, rounds {rounds}")
@@ -2661,9 +2730,9 @@ def phase_train_dp(dev, smi):
                                  f"{r['tf32_inside_steps']}")
     if len({r["digest"] for r in ranks}) != 1:
         raise AssertionError("the ranks' states differ after the steps")
-    hold_state("params_and_batch_stats", ranks[0]["state_dict"], single_sd)
-    hold_logs("nccl", nccl["logs"], first_logs)
-    hold_state("nccl_params_and_batch_stats", nccl["state_dict"], first_sd)
+    hold_run_state(worst, "params_and_batch_stats", ranks[0]["state_dict"], single_sd)
+    hold_run_logs(worst, "nccl", nccl["logs"], first_logs)
+    hold_run_state(worst, "nccl_params_and_batch_stats", nccl["state_dict"], first_sd)
     if nccl["backend"] != "nccl" or nccl["launches"]["cc_label"] != 2:
         raise AssertionError(f"NCCL rank: {nccl['backend']}, launches {nccl['launches']}")
     both = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
@@ -2687,7 +2756,90 @@ def phase_train_dp(dev, smi):
                    collective_ms=nccl["collective_ms"], collectives=nccl["collectives"],
                    longest_collective_ms=nccl["longest_collective_ms"],
                    launches=nccl["launches"], single_process_ms=first_ms))
-    return both
+    return both, single
+
+
+TP_LAYOUT = (2, 2)  # (dp, tp)
+TP_SHARDED_CONVS = 59  # resnet18's layer2-4 and the four FPNs' 256/128-channel convs
+
+
+def phase_train_tp(single):
+    """Tensor-parallel training on the card: four ranks laid out (dp 2, tp
+    2) share it over gloo, with CUDA tensors (NCCL refuses two ranks of one
+    communicator on one device), each a spawned process; the state is
+    `shard_state_tp`'d (the 59 wide convolutions' output channels split over
+    each tp group, with their moments and slow weights), the two ranks of a
+    tp group take the same rows of the global batch of 4 at full width
+    (HEAD_TRAINING, 480x640, 7 classes, 16 slots, 1024 points, 128
+    hypotheses a round, adaptive), for the same `DP_STEPS` steps, inputs
+    and injected draws as `train_dp`. Held against `train_dp`'s
+    single-process steps (`single`, not run again): every rank's logs at the
+    golden tolerance (the matched xy loss within `XY_BAND_LOSS`), the rounds
+    exactly; rank 0's parameters, BatchNorm statistics, moments and slow
+    weights, gathered over its tp group, at the golden tolerance; the two
+    ranks of each tp index bit-equal; each rank's 59 sharded weights at
+    cout / 2 channels; K1 `DP_STEPS` times and K2 once a round on every
+    rank; TF32 off inside every rank's steps. Prints each rank's parameter
+    and optimizer bytes against one process's (about 0.505 expected), its
+    ms a step and the all-gathers' and all-reduces' ms a step (each timed
+    alone). Four ranks sharing one card over gloo are no scaling figure.
+    Returns the launches of every rank."""
+    from fastposecnn_tpu_torch.parallel import mesh
+
+    hp, data, inv_k, draws, seed = single["inputs"]
+    layout = mesh.make_mesh(TP_LAYOUT[0] * TP_LAYOUT[1], tp=TP_LAYOUT[1])
+    torch.cuda.empty_cache()  # four more processes on the card
+    t0 = time.perf_counter()
+    ranks = mesh.launch(train_dp_rank, layout.size,
+                        (hp, data, inv_k, draws, seed, "cuda:0", DP_STEPS),
+                        backend="gloo", deadline_s=DP_DEADLINE_S, layout=layout)
+    seconds = time.perf_counter() - t0
+    worst = {}
+    logs = single["logs"]
+    rounds = [int(lg["pose/vote_rounds"]) for lg in logs]
+    for r in ranks:
+        hold_run_logs(worst, f"rank {r['rank']}", r["logs"], logs)
+        if (r["launches"]["cc_label"] != DP_STEPS
+                or r["launches"]["vote_count"] != sum(rounds)):
+            raise AssertionError(f"rank {r['rank']} launches {r['launches']}, rounds {rounds}")
+        if (r["backend"] != "gloo" or not r["library_reused"]
+                or r["tf32_inside_steps"] != [(False, False)] * DP_STEPS):
+            raise AssertionError(f"rank {r['rank']}: {r['backend']}, reused "
+                                 f"{r['library_reused']}, TF32 in its steps "
+                                 f"{r['tf32_inside_steps']}")
+        if not r["tp_convs"] == r["tp_convs_at_cout_over_tp"] == TP_SHARDED_CONVS:
+            raise AssertionError(f"rank {r['rank']}: {r['tp_convs']} sharded convolutions, "
+                                 f"{r['tp_convs_at_cout_over_tp']} at cout / tp")
+    if [r["coords"] for r in ranks] != [layout.coords(i) for i in range(layout.size)]:
+        raise AssertionError(f"coordinates {[r['coords'] for r in ranks]}")
+    for t in range(layout.tp):
+        if len({r["digest"] for r in ranks if r["coords"][1] == t}) != 1:
+            raise AssertionError(f"the ranks of tp index {t} differ after the steps")
+    hold_run_state(worst, "params_and_batch_stats", ranks[0]["state_dict"],
+                   single["state_dict"])
+    for part in ("mu", "nu", "slow"):
+        hold_run_state(worst, part, ranks[0]["opt"][part], single["opt"][part])
+    one_params, one_opt = single["bytes"]
+    bytes_share = {r["rank"]: (r["param_bytes"] + r["opt_bytes"]) / (one_params + one_opt)
+                   for r in ranks}
+    emit("train_tp", card=nvidia_smi(), ranks=layout.size, mesh=layout.shape,
+         backend="gloo", shared_card=True, no_scaling_figure=True, hw=[H, W], global_batch=4,
+         batch_per_rank=4 // layout.dp, steps=DP_STEPS, classes=7,
+         tp_sharded_convs=TP_SHARDED_CONVS,
+         tolerance=dict(logs_params_batch_stats_moments_slow=dict(atol=2e-4, rtol=1e-4),
+                        xy_loss=dict(atol=2e-4 + XY_BAND_LOSS, rtol=XY_RTOL_LOSS),
+                        rounds="exact", ranks_of_a_tp_index="bit-equal"),
+         max_abs_diff=worst, vote_rounds=rounds,
+         bytes_per_rank={r["rank"]: dict(params=r["param_bytes"], optimizer=r["opt_bytes"])
+                         for r in ranks},
+         bytes_one_process=dict(params=one_params, optimizer=one_opt),
+         bytes_share_of_one_process=bytes_share,
+         launches_per_rank={r["rank"]: r["launches"] for r in ranks},
+         ms_per_step_per_rank={r["rank"]: r["step_ms"] for r in ranks},
+         collectives_per_step_per_rank={r["rank"]: r["collectives_by_kind"] for r in ranks},
+         collective_ms_per_step_per_rank={r["rank"]: r["collective_ms"] for r in ranks},
+         single_process_ms_per_step=single["ms_per_step"], launch_seconds=seconds)
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
 
 
 # -----------------------------------------------------------------------------
@@ -3218,9 +3370,11 @@ def main():
     new_paths = {"serve_encoders": phase_serve_encoders(dev, smi, server),
                  "serve_soft": phase_serve_soft(dev, smi),
                  "voting_vp": phase_voting_vp(dev, smi),
-                 "train_encoders": phase_train_encoders(dev, smi),
-                 "train_dp": phase_train_dp(dev, smi),
-                 "export": phase_export(dev, smi, server)}
+                 "train_encoders": phase_train_encoders(dev, smi)}
+    new_paths["train_dp"], dp_single = phase_train_dp(dev, smi)
+    new_paths["train_tp"] = phase_train_tp(dp_single)
+    del dp_single
+    new_paths["export"] = phase_export(dev, smi, server)
     phase_create_meta(dev, smi)
     new_paths["figures"] = phase_figures(dev, smi)
     for k in kernels:

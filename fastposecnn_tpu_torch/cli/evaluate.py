@@ -29,15 +29,17 @@ The scenes are a NOCS folder (`--valid_dir`, read by `data.nocs.NOCSDataset`
 as the JAX CLI reads it) or the in-memory synthetic source (`--synthetic N`,
 the same scenes as the JAX CLI writes and reads back for the same seed).
 
-`--NUM_DEVICES N` runs phase A data-parallel, as the JAX CLI does over a
-mesh: N ranks (`parallel.mesh.launch`; one a card over NCCL, or N gloo
-processes with `--device cpu`) each load and run their rows of every
-batch of `BATCH_SIZE`, with the vote draws of the whole batch, and the
-matched values are gathered in the single-device order, so the raw errors
-equal the single-device ones. With fewer cards than N, or a `BATCH_SIZE`
-that N does not divide, it warns and evaluates on one device, as the JAX
-CLI does; `--NUM_TP` above 1 is refused (tensor parallelism is not
-ported).
+`--NUM_DEVICES N [--NUM_TP T]` runs phase A over the JAX CLI's mesh
+`make_mesh(N, tp=T)`: N ranks (`parallel.mesh.launch`; one a card over
+NCCL, or N gloo processes with `--device cpu`), rank r at (r // T, r %
+T). Each of the N / T data ranks loads and runs its rows of every batch
+of `BATCH_SIZE`, with the vote draws of the whole batch, and the matched
+values are gathered in the single-device order, so the raw errors equal
+the single-device ones; with T above 1 the network's wide convolutions
+are sharded over the T ranks of each group (`mesh.shard_state_tp`, as the
+JAX CLI shards its state). With fewer cards than N, or a `BATCH_SIZE`
+that N / T does not divide, it warns and evaluates on one device, as the
+JAX CLI does; a T that does not divide N raises.
 """
 
 from __future__ import annotations
@@ -113,7 +115,7 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
     raw = {m: {c: [] for c in range(1, num_classes)} for m in METRICS}
     stats = {"frames": 0, "batches": 0, "vote_rounds": []}
     t0 = time.perf_counter()
-    ranks = mesh.world_size()
+    ranks = mesh.dp_size()
     for bi, batch in enumerate(batches):
         if batch is None:
             if ranks == 1:
@@ -148,7 +150,7 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
             cc_error = agg["cc_error"]
             if ranks > 1:
                 if cc_error is not None:
-                    cc_error = mesh.global_sum(cc_error)
+                    cc_error = mesh.global_sum(cc_error, over="world")
                 parts = mesh.all_gather_object((m, real))
                 m = {k: np.concatenate([part[k] for part, _ in parts]) for k in m}
                 real = np.concatenate([r for _, r in parts])
@@ -348,26 +350,29 @@ def inverse_intrinsics(hp, device) -> torch.Tensor:
     return torch.tensor(np.linalg.inv(K), dtype=torch.float32, device=device)
 
 
-def data_parallel_ranks(hp, device) -> int:
-    """The ranks of a data-parallel phase A (`--NUM_DEVICES`), or 1 with the
-    JAX CLI's warnings: fewer cards than asked, or a `BATCH_SIZE` that the
-    ranks do not divide. `--NUM_TP` above 1 raises."""
-    if hp.NUM_TP > 1:
-        mesh.make_mesh(hp.NUM_DEVICES, tp=hp.NUM_TP)  # raises: not ported
+def phase_a_layout(hp, device) -> Optional[mesh.Mesh]:
+    """The layout of phase A (`--NUM_DEVICES`, `--NUM_TP`), or None (one
+    device) with the JAX CLI's warnings: fewer cards than asked, or a
+    `BATCH_SIZE` that the dp = NUM_DEVICES // NUM_TP ranks do not divide
+    (`cli/evaluate.py:320-341` of the JAX package). A `--NUM_TP` below 1,
+    or that does not divide the ranks, raises."""
     n = hp.NUM_DEVICES
     if n <= 1:
-        return 1
+        return None
+    if hp.NUM_TP < 1:
+        raise ValueError(f"--NUM_TP {hp.NUM_TP}: the 'tp' axis needs at least one rank")
+    dp = max(n // hp.NUM_TP, 1)
     if device.type == "cuda" and torch.cuda.device_count() < n:
         print(f"WARNING: --NUM_DEVICES={n} requested but only "
               f"{torch.cuda.device_count()} device(s) visible — falling back to "
               "single-device evaluation.")
-        return 1
-    if hp.BATCH_SIZE % n:
+        return None
+    if hp.BATCH_SIZE % dp:
         print(f"WARNING: --NUM_DEVICES={n} requested but BATCH_SIZE={hp.BATCH_SIZE} "
-              f"is not divisible by dp={n} — falling back to single-device "
-              f"evaluation. Pick a BATCH_SIZE that is a multiple of {n}.")
-        return 1
-    return n
+              f"is not divisible by dp={n}//NUM_TP({hp.NUM_TP})={dp} — falling back to "
+              f"single-device evaluation. Pick a BATCH_SIZE that is a multiple of {dp}.")
+        return None
+    return mesh.make_mesh(n, tp=hp.NUM_TP)
 
 
 def phase_a(hp, args, device):
@@ -382,11 +387,12 @@ def phase_a(hp, args, device):
     source = scene_source(hp, args)
     scene_seconds = time.perf_counter() - t0
     net, hp = build_network(hp, device)
+    mesh.shard_network_tp(net)  # every rank built the same weights
     pcfg = C.pipeline_config_from(hp)
     pcfg.check_ported()
     timers = {name: StageTimer(name, device) for name in STAGES}
     raw, stats = collect_raw_errors(
-        hp, iterate_batches(source, hp.BATCH_SIZE, shard=(mesh.rank(), mesh.world_size())),
+        hp, iterate_batches(source, hp.BATCH_SIZE, shard=(mesh.dp_rank(), mesh.dp_size())),
         net, pcfg, inverse_intrinsics(hp, device), device,
         fpc_compat_iou=args.fpc_compat_iou,
         generator=torch.Generator(device).manual_seed(args.vote_seed),
@@ -423,12 +429,12 @@ def main(argv=None) -> dict:
 
             pyplot("the evaluate CLI's --draw figures")
             need("cv2", "the evaluate CLI's --draw figures")
-        ranks = data_parallel_ranks(hp, device)
-        if ranks > 1:
-            print(f"phase A: data-parallel over {mesh.make_mesh(ranks).shape} mesh")
-            raw, stats = mesh.launch(phase_a, ranks, (hp, args, device),
-                                     backend=mesh.default_backend(device),
-                                     threads=mesh.cpu_threads(ranks, device))[0]
+        layout = phase_a_layout(hp, device)
+        if layout is not None:
+            print(f"phase A: data-parallel over {layout.shape} mesh")
+            raw, stats = mesh.launch(phase_a, layout.size, (hp, args, device),
+                                     backend=mesh.default_backend(device), layout=layout,
+                                     threads=mesh.cpu_threads(layout.size, device))[0]
         else:
             raw, stats = phase_a(hp, args, device)
         np.savez(results_path,

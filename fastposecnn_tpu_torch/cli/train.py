@@ -5,7 +5,8 @@ unless `--device cpu` is given.
         (--synthetic N | --train_dir D --valid_dir D) --epochs 2 [--no_tb]
         [--stage_on_device [--restage_every K] [--snapshot_npz F]
          [--bank_pool_dir D]] [--resume checkpoints/last|snap.npz]
-        [--no_augment] [--device cpu] [--NUM_DEVICES N] [--HPARAM value ...]
+        [--no_augment] [--device cpu] [--NUM_DEVICES N [--NUM_TP T]]
+        [--HPARAM value ...]
 
 Every `HParams` field is a `--FIELD` flag (FPC/train.py:102-112). The data
 are NOCS folders (`data.nocs.NOCSDataset`, PNGs decoded without an image
@@ -28,13 +29,18 @@ staged plateau defaults (`config.staged_plateau_defaults`) unless
 weights are not in the repo: training starts from seeded random weights or
 from `--resume`.
 
-`--NUM_DEVICES N` trains the streaming trainer data-parallel over N ranks
+`--NUM_DEVICES N [--NUM_TP T]` trains the streaming trainer over N ranks
 (`parallel.mesh.launch`): one a card over NCCL, or, with `--device cpu`,
-N gloo processes. Each rank loads its rows of every global batch of
-`BATCH_SIZE` (which N must divide); rank 0 writes the run dir. With fewer
-cards than N it trains on one and says so, as the JAX loop builds no mesh
-then. The staged trainer uses one device and only warns about
-`--NUM_DEVICES`. `--NUM_TP` above 1 (tensor parallelism) is refused.
+N gloo processes, laid out as the JAX mesh `make_mesh(N, tp=T)`: rank r
+at (r // T, r % T), N / T data-parallel ranks of T tensor-parallel ones
+(`mesh.shard_state_tp`: each wide convolution's output channels split
+over the T ranks of a group, which load the same rows). Each data rank
+loads its rows of every global batch of `BATCH_SIZE` (which N / T must
+divide); rank 0 writes the run dir. A T that is below 1 or does not
+divide N raises before anything is read or written. With fewer cards
+than N it trains on one and says so, as the JAX loop builds no mesh then.
+The staged trainer uses one device and only warns about `--NUM_DEVICES`
+and `--NUM_TP`, as the JAX staged trainer builds no mesh.
 """
 
 from __future__ import annotations
@@ -166,17 +172,34 @@ def data_parallel_ranks(requested: int, device) -> int:
     return requested
 
 
+def train_layout(hp, device):
+    """The layout `--NUM_DEVICES` and `--NUM_TP` ask for (`mesh.Mesh`;
+    one rank when `data_parallel_ranks` falls back to one device). Raises
+    for a `--NUM_TP` below 1 or that does not divide the ranks, and for a
+    `BATCH_SIZE` that the data ranks do not divide."""
+    if hp.NUM_TP < 1:
+        raise ValueError(f"--NUM_TP {hp.NUM_TP}: the 'tp' axis needs at least one rank")
+    ranks = data_parallel_ranks(hp.NUM_DEVICES, device)
+    layout = mesh.make_mesh(ranks, tp=hp.NUM_TP if ranks > 1 else 1)
+    if hp.BATCH_SIZE % layout.dp:
+        over = (f" --NUM_TP {layout.tp}: {layout.dp} data-parallel ranks" if layout.tp > 1
+                else " ranks")
+        raise ValueError(f"BATCH_SIZE={hp.BATCH_SIZE} does not split over --NUM_DEVICES "
+                         f"{ranks}{over}")
+    return layout
+
+
 def _streaming_rank(hp, args, train_dir, valid_dir, inv_k, device, built=None):
     """The streaming trainer on this rank (the datasets `built`, else read
     from the folders): its rows of every global batch. Returns (final
-    TrainState, run dir); inside a process group, rank 0's state moved to
-    the CPU and None on the other ranks."""
+    TrainState, run dir); inside a process group, rank 0's state (gathered
+    over its tp group) moved to the CPU and None on the other ranks."""
     from fastposecnn_tpu_torch.data.loader import PrefetchLoader
     from fastposecnn_tpu_torch.train.loop import fit
 
     train_ds, valid_ds = built or datasets(hp, args, train_dir, valid_dir)
     device = mesh.use_rank_device(device)
-    shard = (mesh.rank(), mesh.world_size())
+    shard = (mesh.dp_rank(), mesh.dp_size())
     train_loader = PrefetchLoader(train_ds, hp.BATCH_SIZE, shuffle=not hp.DETERMINISTIC,
                                   num_workers=hp.NUM_WORKERS, shard=shard)
     valid_loader = PrefetchLoader(valid_ds, hp.BATCH_SIZE, shuffle=False,
@@ -185,6 +208,7 @@ def _streaming_rank(hp, args, train_dir, valid_dir, inv_k, device, built=None):
                          enable_tb=not args.no_tb, num_epochs=args.epochs,
                          resume_from=args.resume)
     if mesh.active():
+        state = mesh.gather_state_tp(state) if mesh.dp_rank() == 0 else state
         state = _on_cpu(state) if mesh.rank() == 0 else None
     return state, run_dir
 
@@ -210,15 +234,8 @@ def main(argv=None):
     if args.stage_on_device and args.restage_every:
         hp = C.staged_plateau_defaults(hp, patience_explicit=args.PLATEAU_PATIENCE is not None,
                                        factor_explicit=args.PLATEAU_FACTOR is not None)
-    if hp.NUM_TP > 1:
-        raise NotImplementedError(
-            f"--NUM_TP {hp.NUM_TP}: tensor parallelism is not ported "
-            "(ROADMAP.md queue A item 13); the port trains data-parallel only")
     device = resolve_device(args.device)
-    ranks = 1 if args.stage_on_device else data_parallel_ranks(hp.NUM_DEVICES, device)
-    if hp.BATCH_SIZE % ranks:
-        raise ValueError(f"BATCH_SIZE={hp.BATCH_SIZE} does not split over --NUM_DEVICES "
-                         f"{ranks} ranks")
+    layout = mesh.make_mesh(1) if args.stage_on_device else train_layout(hp, device)
     if hp.DETERMINISTIC:  # FPC/train.py:125-137
         np.random.seed(125)
 
@@ -247,9 +264,11 @@ def main(argv=None):
         if args.stage_on_device:
             from fastposecnn_tpu_torch.train.staged import fit_staged
 
-            if hp.NUM_DEVICES > 1:
+            if hp.NUM_DEVICES > 1 or hp.NUM_TP != 1:
+                ignored = f"--NUM_DEVICES {hp.NUM_DEVICES}" + (
+                    f" --NUM_TP {hp.NUM_TP}" if hp.NUM_TP != 1 else "")
                 print(f"WARNING: --stage_on_device trains on a SINGLE device; "
-                      f"--NUM_DEVICES {hp.NUM_DEVICES} is ignored.", flush=True)
+                      f"{ignored} is ignored.", flush=True)
             regen = None
             if bank_pool is not None and args.restage_every:
                 bank_pool.launch()  # fill the pool during staging and epoch 0
@@ -262,11 +281,12 @@ def main(argv=None):
                 restage_every=args.restage_every, regen_fn=regen,
                 snapshot_npz=args.snapshot_npz)
         else:
-            if ranks > 1:
+            if layout.size > 1:
                 state, run_dir = mesh.launch(
-                    _streaming_rank, ranks, (hp, args, train_dir, valid_dir, inv_k, device),
-                    backend=mesh.default_backend(device),
-                    threads=mesh.cpu_threads(ranks, device))[0]
+                    _streaming_rank, layout.size,
+                    (hp, args, train_dir, valid_dir, inv_k, device),
+                    backend=mesh.default_backend(device), layout=layout,
+                    threads=mesh.cpu_threads(layout.size, device))[0]
             else:
                 state, run_dir = _streaming_rank(hp, args, train_dir, valid_dir, inv_k,
                                                  device, (train_ds, valid_ds))

@@ -49,7 +49,7 @@ def _mean(x: Tensor, dim=None) -> Tensor:
         return x.mean() if dim is None else x.mean(dim=dim)
     n = x.numel() if dim is None else int(np.prod([x.shape[d] for d in dim]))
     total = x.sum() if dim is None else x.sum(dim=dim)
-    return total / (n * mesh.world_size())
+    return total / (n * mesh.dp_size())
 
 
 def _weighted_sample_mean(per_sample: Tensor, sample_weight: Tensor) -> Tensor:

@@ -61,16 +61,17 @@ class BatchNorm(nn.BatchNorm2d):
     mean and variance.
 
     Inside a process group (`parallel.mesh`), the batch is the global one:
-    the sums are summed over the ranks in one all-reduce that carries
+    the sums are summed over the dp ranks in one all-reduce that carries
     gradient, so every rank normalizes with the global batch's statistics
-    and holds the same running ones. One process takes the same code path
+    and holds the same running ones (after a tensor-parallel convolution,
+    over all of its gathered channels). One process takes the same code path
     without the all-reduce."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         c = x.shape[1]
-        n = x.numel() // c * mesh.world_size()  # every rank holds as many rows
+        n = x.numel() // c * mesh.dp_size()  # every dp rank holds as many rows
         stats = mesh.all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)),
                                                (x * x).sum(dim=(0, 2, 3))]))
         mean = stats[:c] / n

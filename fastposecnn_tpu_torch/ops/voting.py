@@ -539,7 +539,7 @@ def ransac_vote_centers_adaptive(
                 idx = pairs[rounds].to(device=pts.device, dtype=torch.int64)
             else:
                 idx = mesh.rank_rows(torch.randint(
-                    0, p, (m * mesh.world_size(), round_hyp_num, 2),
+                    0, p, (m * mesh.dp_size(), round_hyp_num, 2),
                     generator=generator, device=pts.device))
             last_hyps, best_pts, best_ratio = _vote_round(*fixed, idx, inlier_thresh, impl,
                                                           best_pts, best_ratio)
@@ -581,7 +581,7 @@ def hough_vote(agg: dict, max_points: int = 1024, round_hyp_num: int = 128,
     if draws is None:
         if generator is None or cpu_generator is None:
             raise ValueError("hough_vote needs `draws` or both generators")
-        draws = sample_draws(b * mesh.world_size(), n, max_points, round_hyp_num,
+        draws = sample_draws(b * mesh.dp_size(), n, max_points, round_hyp_num,
                              generator, cpu_generator, sampler)
     draws = draws.rank_rows()
     if sampler == "cdf":

@@ -188,7 +188,7 @@ def soft_hough_vote(agg: dict, max_points: int = 1024, num_hypotheses: int = 128
     if draws is None:
         if generator is None:
             raise ValueError("soft_hough_vote needs `draws` or a generator")
-        ranks = mesh.world_size()
+        ranks = mesh.dp_size()
         u = torch.rand((b * ranks, n, max_points), generator=generator, device=dev)
         pairs = torch.randint(0, max_points, (m * ranks, num_hypotheses, 2),
                               generator=generator, device=dev)

@@ -1,2 +1,3 @@
-"""Data parallelism over processes (`parallel/mesh.py`) and its dry run
+"""Data and tensor parallelism over processes (`parallel/mesh.py`, the
+sharded convolutions of `parallel/tp.py`) and its dry run
 (`parallel/dryrun.py`)."""

@@ -13,15 +13,20 @@ optimizer, and checkpoints: `best` on the validation loss, `periodic` every
 train and eval steps compute in `device.full_float32()`; `COMPUTE_DTYPE` is
 not honoured (the JAX loop takes bfloat16 only on a TPU).
 
-Data parallel (`parallel.mesh`): inside a process group each rank passes
-its rows of every padded global batch (the loaders are sharded by rank,
-`data.loader.PrefetchLoader(shard=...)`) and the steps are the global
-batch's, so every log, the validation loss, the plateau schedule and the
-metric bank are the same on every rank. Rank 0 alone writes the run dir,
-`HPARAM.json`, `run.log`, TensorBoard, checkpoints and fault batches (the
-global batch, gathered); a resume loads on rank 0 and `replicate`s. A
-`BATCH_SIZE` that the ranks do not divide raises before the first step. A
-global batch with no real sample is skipped by every rank.
+Data and tensor parallel (`parallel.mesh`): inside a process group each
+rank passes its rows of every padded global batch (the loaders are
+sharded by data index, `data.loader.PrefetchLoader(shard=...)`; the ranks
+of one tp group load the same rows) and the steps are the global batch's,
+so every log, the validation loss, the plateau schedule and the metric
+bank are the same on every rank. The state is `shard_state_tp`'d over the
+group's layout (rank 0's, replicated, when tp = 1), as the JAX loop does
+(`train/loop.py:203-209`). Rank 0 alone writes the run dir,
+`HPARAM.json`, `run.log`, TensorBoard, checkpoints (of the whole state,
+gathered over the tp group: the file one process writes) and fault
+batches (the global batch, gathered); a resume loads on rank 0, then
+`shard_state_tp` replicates and shards it. A `BATCH_SIZE` that the data
+ranks do not divide raises before the first step. A global batch with no
+real sample is skipped by every rank.
 
 Each epoch (`visualize_every`), the first validation batch's first
 samples are drawn as figures (`log_epoch_visualizations`: masks, voted
@@ -54,6 +59,7 @@ from fastposecnn_tpu_torch.device import resolve_device
 from fastposecnn_tpu_torch.models import network_from_hparams
 from fastposecnn_tpu_torch.models.weights import init_random_
 from fastposecnn_tpu_torch.parallel import mesh
+from fastposecnn_tpu_torch.parallel.tp import sharded_names as tp_sharded_names
 from fastposecnn_tpu_torch.train import checkpoint as ckpt
 from fastposecnn_tpu_torch.train import optim
 from fastposecnn_tpu_torch.train.task import (
@@ -119,7 +125,7 @@ def _rank_batch(batch, hp: HParams, device):
     """This rank's batch padded to its rows of `BATCH_SIZE`, and the real
     samples of the global batch (0: every rank skips it; without a group,
     a None batch)."""
-    ranks = mesh.world_size()
+    ranks = mesh.dp_size()
     if batch is None:
         if ranks == 1:
             return None, 0
@@ -131,13 +137,22 @@ def _rank_batch(batch, hp: HParams, device):
 
 
 def _global_batch(batch):
-    """The ranks' batches, gathered and concatenated in rank order."""
-    if mesh.world_size() == 1:
+    """The data ranks' batches, gathered and concatenated in rank order."""
+    if mesh.dp_size() == 1:
         return batch
     parts = mesh.all_gather_object(batch)
     return {"image": np.concatenate([b["image"] for b in parts]),
             "mask": np.concatenate([b["mask"] for b in parts]),
             "agg": {k: np.concatenate([b["agg"][k] for b in parts]) for k in batch["agg"]}}
+
+
+def _save(directory, state, hp: HParams, lead: bool) -> None:
+    """A checkpoint of the whole state, written by rank 0 (the ranks of its
+    tp group take part in gathering a sharded state)."""
+    if mesh.dp_rank() == 0:
+        state = mesh.gather_state_tp(state)
+    if lead:
+        ckpt.save_checkpoint(directory, state.step, state, hp)
 
 
 def _save_fault_batch(run_dir, step, batch, flog):
@@ -212,7 +227,8 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
     the per-epoch visualisations every `visualize_every` epochs (0: none).
     Returns (final TrainState, run_dir)."""
     device = resolve_device(device)
-    ranks, lead = mesh.world_size(), mesh.rank() == 0
+    layout, lead = mesh.layout(), mesh.rank() == 0
+    ranks = layout.data_ranks
     if hp.BATCH_SIZE % ranks:
         raise ValueError(f"BATCH_SIZE={hp.BATCH_SIZE} does not split over {ranks} "
                          "data-parallel ranks")
@@ -230,6 +246,8 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
         if ranks > 1:
             flog.info("data-parallel over %d ranks (%s), %d samples a rank", ranks,
                       mesh.backend(), hp.BATCH_SIZE // ranks)
+        if layout.tp > 1:
+            flog.info("tensor-parallel: mesh %s (%s)", layout.shape, mesh.backend())
         net = network_from_hparams(hp)
         net = init_random_(net, INIT_SEED).to(device)
         pcfg = pipeline_config_from(hp)
@@ -238,7 +256,9 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
         if resume_from and lead:
             state, hp = ckpt.load_any_checkpoint(resume_from, state, hp, optimizer=optimizer)
             flog.info("resumed from %s at step %d", resume_from, state.step)
-        state = mesh.replicate(state)
+        state = mesh.shard_state_tp(state, layout)  # == replicate when tp=1
+        if layout.tp > 1:
+            flog.info("tp-sharded %d conv weights", len(tp_sharded_names(state.net)))
         hp = mesh.broadcast_object(hp)
         train_step = make_train_step(net, optimizer, hp, pcfg, inv_intrinsics, device)
         eval_step = make_eval_step(net, hp, pcfg, inv_intrinsics, device)
@@ -322,10 +342,9 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
             # ---- checkpoints (rank 0) ----
             if val_loss < best_val:
                 best_val = val_loss
-                if lead:
-                    ckpt.save_checkpoint(ckpt_dir / "best", state.step, state, hp)
-            if (epoch + 1) % hp.CKPT_SAVE_FREQUENCY == 0 and lead:
-                ckpt.save_checkpoint(ckpt_dir / "periodic", state.step, state, hp)
+                _save(ckpt_dir / "best", state, hp, lead)
+            if (epoch + 1) % hp.CKPT_SAVE_FREQUENCY == 0:
+                _save(ckpt_dir / "periodic", state, hp, lead)
             msg = (f"epoch {epoch}: val_loss={val_loss:.4f} "
                    f"lr_scale={plateau.scale:.4f} skipped={state.skipped_updates} "
                    + " ".join(f"{k.split('/')[-1]}={v:.2f}" for k, v in pose_vals.items()))
@@ -333,8 +352,7 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
                 print(msg, flush=True)
             flog.info(msg)
 
-        if lead:
-            ckpt.save_checkpoint(ckpt_dir / "last", state.step, state, hp)
+        _save(ckpt_dir / "last", state, hp, lead)
         logger.log_hparams(dataclasses.asdict(hp), {"best_val_loss": best_val})
         return state, run_dir
     finally:

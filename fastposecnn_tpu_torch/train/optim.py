@@ -6,7 +6,8 @@ tensors keyed by parameter name (`net.named_parameters()`).
 The chain, in the order of the JAX `make_optimizer` (:163-192):
   1. freeze: x0 on the gradients of frozen modules (before the clip, so
      frozen gradients do not count in its norm);
-  2. clip by global norm (GRADIENT_CLIP_VAL);
+  2. clip by global norm (GRADIENT_CLIP_VAL; of the whole gradients when
+     the state is tp-sharded, `global_norm`);
   3. RAdam scaling, optax's `scale_by_radam` defaults (b1 0.9, b2 0.999,
      eps 1e-8, threshold 5);
   4. decoupled weight decay: + WEIGHT_DECAY * param;
@@ -16,7 +17,8 @@ The chain, in the order of the JAX `make_optimizer` (:163-192):
   7. x lr_scale (the plateau scale, `set_lr_scale`);
   8. Lookahead (sync every 5 steps, slow step 0.5).
 `torch.optim.RAdam` is not used: it adds the weight decay to the gradient
-and rectifies from another formula.
+and rectifies from another formula. Every step but the clip is
+elementwise, so it acts on a tp-sharded state's slices as they are.
 
 The step's scalars (bias corrections, RAdam's rectification) come from the
 host's step count, in float64, and are rounded to float32 where optax
@@ -29,10 +31,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+
+from fastposecnn_tpu_torch.parallel import mesh
+from fastposecnn_tpu_torch.parallel.tp import is_sharded
 
 Params = Dict[str, torch.Tensor]
 
@@ -57,16 +62,25 @@ def _f32(x: float) -> float:
 # The transforms
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (a device scalar)."""
-    return torch.sqrt(sum((t * t).sum() for t in tensors))
+def global_norm(tensors: List[torch.Tensor],
+                sharded: Sequence[bool] = ()) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (a device scalar). A
+    tensor flagged in `sharded` is this rank's slice of a tp-sharded one
+    (`parallel.tp`): its squares are summed over the tp group, and a
+    replicated tensor counts once."""
+    if not any(sharded):
+        return torch.sqrt(sum((t * t).sum() for t in tensors))
+    own = [(t * t).sum() for t, s in zip(tensors, sharded, strict=True) if s]
+    rest = [(t * t).sum() for t, s in zip(tensors, sharded) if not s]
+    return torch.sqrt(sum(rest) + mesh.global_sum(sum(own), over="tp"))
 
 
-def clip_by_global_norm(updates: List[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(updates: List[torch.Tensor], max_norm: float,
+                        sharded: Sequence[bool] = ()) -> List[torch.Tensor]:
     """optax's `clip_by_global_norm`: unchanged below `max_norm`, else
-    (t / norm) * max_norm. Decided on the device, with no host sync."""
-    norm = global_norm(updates)
+    (t / norm) * max_norm. Decided on the device, with no host sync.
+    `sharded` as for `global_norm`."""
+    norm = global_norm(updates, sharded)
     keep = norm < max_norm
     return [torch.where(keep, t, (t / norm) * max_norm) for t in updates]
 
@@ -189,7 +203,7 @@ class Optimizer:
         """(updates, new state) for the gradients `grads`."""
         ps = [params[n].detach() for n in self.names]
         u = scale_each([grads[n] for n in self.names], self.freeze)
-        u = clip_by_global_norm(u, self.clip)
+        u = clip_by_global_norm(u, self.clip, [is_sharded(params[n]) for n in self.names])
         u, mu, nu, count = scale_by_radam(
             u, [state.mu[n] for n in self.names], [state.nu[n] for n in self.names],
             state.count)

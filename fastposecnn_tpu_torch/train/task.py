@@ -21,10 +21,15 @@ Inside a process group (`parallel.mesh`) a step is the global batch's:
 each rank passes its rows of the batch (and, when it injects them, the
 global batch's dropout masks and vote draws, of which it takes its own;
 fresh ones are drawn for the global batch and sliced), its losses are its
-shares of the global ones, the gradients and the CC kernel's error flag
-are summed over the ranks in one all-reduce after the backward pass, and
-the logs are the global batch's. Every rank then sees the same gradients,
-skips the same steps and keeps bit-equal parameters.
+shares of the global ones, the gradients are summed over the dp ranks in
+one all-reduce after the backward pass, and the logs are the global
+batch's. Every rank then sees the same gradients, skips the same steps and
+keeps bit-equal parameters. With a tp-sharded state (`mesh.shard_state_tp`)
+the ranks of one tp group pass the same rows and each holds its slice of
+the sharded weights and of their gradients and moments: the gradients'
+global norm sums a sharded tensor's squares over the tp group, and the
+gradients' finiteness and the CC kernel's error flag are reduced over the
+world, so every rank skips the same steps.
 
 The step reads two values on the host at its end: whether the gradients
 were finite (to skip or apply the update) and, under HEAD_TRAINING on a
@@ -51,6 +56,7 @@ from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
 from fastposecnn_tpu_torch.ops.matching import gather_matched, match_instances
 from fastposecnn_tpu_torch.ops.voting import VoteDraws
 from fastposecnn_tpu_torch.parallel import mesh
+from fastposecnn_tpu_torch.parallel.tp import is_sharded
 from fastposecnn_tpu_torch.pipeline import PipelineConfig, run_pipeline
 from fastposecnn_tpu_torch.train import optim as O
 
@@ -177,7 +183,7 @@ def make_train_step(net: torch.nn.Module, optimizer: O.Optimizer, hp,
         with _precision(device):
             if mesh.active():  # the global batch's masks, this rank's rows
                 keep = dropout_keep or net.draw_dropout_keep(
-                    batch["image"].shape[0] * mesh.world_size(), device, gen)
+                    batch["image"].shape[0] * mesh.dp_size(), device, gen)
                 dropout_keep = {k: mesh.rank_rows(v).to(device) for k, v in keep.items()}
             net.zero_grad(set_to_none=True)
             logits = net(batch["image"], dropout_keep=dropout_keep, generator=gen)
@@ -188,11 +194,13 @@ def make_train_step(net: torch.nn.Module, optimizer: O.Optimizer, hp,
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
             agg = out["aggregated"]
             cc_error = agg["cc_error"] if agg is not None else None
+            finite = None
             if mesh.active():
-                grads, cc_error = _sum_grads_over_ranks(params, grads, cc_error)
-            finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+                grads, finite, cc_error = _sum_grads_over_ranks(params, grads, cc_error)
+            if finite is None:
+                finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
             safe = [torch.nan_to_num(g) for g in grads]
-            logs["grad/global_norm"] = O.global_norm(safe)
+            logs["grad/global_norm"] = O.global_norm(safe, [is_sharded(p) for p in params])
             logs["grad/finite"] = finite.float()
             if agg is not None and "vote_rounds" in agg:
                 logs["pose/vote_rounds"] = torch.tensor(float(agg["vote_rounds"]))
@@ -211,16 +219,25 @@ def make_train_step(net: torch.nn.Module, optimizer: O.Optimizer, hp,
 
 
 def _sum_grads_over_ranks(params, grads, cc_error):
-    """The gradients and the CC kernel's error flag (a flag set on any rank
-    fails every rank) summed over the ranks in one all-reduce; a parameter
-    with a `.grad` gets the sum there too."""
+    """The gradients summed over the dp ranks in one all-reduce (a
+    parameter with a `.grad` gets the sum there too), and the CC kernel's
+    error flag summed over the world (a flag set on any rank fails every
+    rank). Data-parallel, the flag rides in the gradients' all-reduce and
+    the finiteness is left to the caller (None); with a tp-sharded state
+    the ranks' gradients differ, so whether every rank's are finite comes
+    back too, from one all-reduce of both flags over the world."""
     flag = [] if cc_error is None else [cc_error]
-    summed = mesh.sum_over_ranks(list(grads) + flag)
+    tensor_parallel = mesh.tp_size() > 1
+    summed = mesh.sum_over_ranks(list(grads) + ([] if tensor_parallel else flag))
     grads = summed[:len(grads)]
     for p, g in zip(params, grads):
         if p.grad is not None:
             p.grad.copy_(g)
-    return grads, (summed[-1] if flag else None)
+    if not tensor_parallel:
+        return grads, None, (summed[-1] if flag else None)
+    bad = torch.stack([~torch.isfinite(g).all() for g in grads]).any().float()
+    flags = mesh.sum_over_ranks([bad] + flag, over="world")
+    return grads, flags[0] == 0, (flags[1] if flag else None)
 
 
 def make_eval_step(net: torch.nn.Module, hp, pcfg: PipelineConfig, inv_intrinsics,
@@ -251,7 +268,7 @@ def make_eval_step(net: torch.nn.Module, hp, pcfg: PipelineConfig, inv_intrinsic
         if out["aggregated"] is not None:
             cc_error = out["aggregated"]["cc_error"]
             if mesh.active() and cc_error is not None:  # set on any rank fails all
-                cc_error = mesh.global_sum(cc_error)
+                cc_error = mesh.global_sum(cc_error, over="world")
             raise_on_error_flag(cc_error)
         return logs, metric_bank, out
 

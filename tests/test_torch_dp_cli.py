@@ -4,9 +4,9 @@ CLI with `--device cpu --NUM_DEVICES 2` (one HEAD_TRAINING epoch at 64x64,
 batch 4) writes one run dir and ends at the parameters, batch statistics
 and optimizer state of `--NUM_DEVICES 1` (golden tolerance, atol 2e-4 /
 rtol 1e-4), and so does a resume of that run's last checkpoint (loaded on
-rank 0 and replicated) for one more epoch; `--NUM_TP 2` is refused; a
-card count below `--NUM_DEVICES` falls back to one device with a
-warning; `dryrun_multichip(2)` runs. Phase A of the evaluate CLI over 2
+rank 0 and replicated) for one more epoch, and so does `--NUM_DEVICES 2
+--NUM_TP 2` (tensor parallel, the checkpoint gathered); a card count
+below `--NUM_DEVICES` falls back to one device with a warning; `dryrun_multichip(2)` runs. Phase A of the evaluate CLI over 2
 ranks gives the single-device raw errors (rtol/atol 1e-4, the tolerance
 of the JAX package's slow `tests/test_eval_dp.py`), and falls back with
 the JAX CLI's warning when the ranks do not divide the batch.
@@ -106,11 +106,21 @@ def test_train_cli_resumes_over_two_ranks(one_process_run, tmp_path, monkeypatch
     assert_same_state(ends[1], ends[0], step=4)
 
 
-def test_train_cli_refuses_tensor_parallelism(tmp_path, monkeypatch):
+def test_train_cli_refuses_tensor_parallelism(one_process_run, tmp_path, monkeypatch):
+    """Tensor parallelism is no longer refused: `--NUM_DEVICES 2 --NUM_TP 2`
+    trains over (dp 1, tp 2), each rank holding half of the 59 wide
+    convolutions' output channels, and ends where one process does (the
+    checkpoint gathered on rank 0, and the state it returns)."""
     monkeypatch.setenv("LOGS", str(tmp_path / "logs"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcli.main([*TRAIN, "--NUM_DEVICES", "2", "--NUM_TP", "2"])
-    assert not (tmp_path / "logs").exists()
+    state, run_dir = tcli.main(["-e", "TP", *TRAIN, "--NUM_DEVICES", "2", "--NUM_TP", "2"])
+    log = (pathlib.Path(run_dir) / "run.log").read_text()
+    assert "tensor-parallel: mesh {'dp': 1, 'tp': 2} (gloo)" in log
+    assert "tp-sharded 59 conv weights" in log and "data-parallel over" not in log
+    tp = last_checkpoint(run_dir)
+    assert_same_state(tp, last_checkpoint(one_process_run), step=2)
+    sd = state.net.state_dict()  # rank 0's, gathered
+    for name, want in tp["state_dict"].items():
+        assert torch.equal(sd[name], want), name
 
 
 def test_fewer_cards_than_ranks_train_on_one(monkeypatch, capsys):

@@ -4,7 +4,8 @@ process on the concatenated global batch:
 
 - the launcher: ranks, world and backend; a failing rank's traceback
   raised in the caller while its peer waits in a collective; a deadline
-  that ends hung ranks; `make_mesh` refuses tensor parallelism;
+  that ends hung ranks; `make_mesh` lays out tensor parallelism and
+  refuses a tp that does not divide the ranks;
 - global BatchNorm: output, input and parameter gradients (the ranks'
   shares summed), running statistics on every rank;
 - every loss of `losses` on a split where rank 0 has no foreground, no
@@ -71,9 +72,12 @@ def test_a_deadline_ends_hung_ranks():
 
 
 def test_make_mesh_refuses_tensor_parallelism():
+    """`make_mesh` lays out tensor parallelism and refuses what JAX's
+    asserts against: dp x tp other than the ranks."""
     assert mesh.make_mesh(2).shape == {"dp": 2, "tp": 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mesh.make_mesh(4, tp=2)
+    assert mesh.make_mesh(4, tp=2).shape == {"dp": 2, "tp": 2}
+    with pytest.raises(ValueError, match="dp=1 x tp=2 is not the 3 ranks"):
+        mesh.make_mesh(3, tp=2)
     assert not mesh.active() and mesh.world_size() == 1  # no group in the test process
 
 

@@ -116,7 +116,9 @@ def test_port_sources_import_no_jax():
                    "ops/voting_soft.py", "ops/voting_vp.py", "models/resnet.py",
                    "parallel/mesh.py", "parallel/dryrun.py", "data/meta_plus.py",
                    "cli/create_meta.py", "utils/export.py", "utils/draw.py",
-                   "utils/visualize.py", "utils/report.py", "utils/optional.py"):
+                   "utils/visualize.py", "utils/report.py", "utils/optional.py",
+                   "parallel/tp.py", "parallel/__init__.py", "ops/voting.py",
+                   "cli/evaluate.py", "metrics.py"):
         assert REPO / "fastposecnn_tpu_torch" / module in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

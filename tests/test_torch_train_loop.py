@@ -257,18 +257,24 @@ def test_cli_resumes_from_last_and_from_npz(tmp_path, monkeypatch):
     assert from_npz.step == 2 and from_npz.opt_state.count == 2
 
 
-@pytest.mark.parametrize("flags", [
-    ["--synthetic", "4", "--NUM_DEVICES", "2", "--NUM_TP", "2"],
-    ["--synthetic", "4", "--NUM_DEVICES", "4", "--NUM_TP", "2"],
-    ["--train_dir", "d", "--valid_dir", "d", "--NUM_DEVICES", "8", "--NUM_TP", "4"],
-    ["--synthetic", "4", "--restage_every", "2", "--NUM_DEVICES", "4", "--NUM_TP", "2"],
+@pytest.mark.parametrize("flags,error", [
+    pytest.param(["--synthetic", "4", "--NUM_DEVICES", "3", "--NUM_TP", "2"],
+                 "dp=1 x tp=2 is not the 3 ranks", id="flags0"),
+    pytest.param(["--synthetic", "4", "--NUM_DEVICES", "8", "--NUM_TP", "2"],
+                 "BATCH_SIZE=2 does not split over --NUM_DEVICES 8 --NUM_TP 2: 4 "
+                 "data-parallel ranks", id="flags1"),
+    pytest.param(["--train_dir", "d", "--valid_dir", "d", "--NUM_DEVICES", "2", "--NUM_TP",
+                  "0"], "--NUM_TP 0: the 'tp' axis needs at least one rank", id="flags2"),
+    pytest.param(["--synthetic", "4", "--restage_every", "2", "--NUM_DEVICES", "4",
+                  "--NUM_TP", "3"], "dp=1 x tp=3 is not the 4 ranks", id="flags3"),
 ])
-def test_cli_refuses_unported_flags(flags, tmp_path, monkeypatch):
-    """What the port's CLI still lacks: tensor parallelism (ROADMAP.md queue
-    A item 13; data-parallel `--NUM_DEVICES` is ported,
-    `test_torch_dp_cli.py`). `--NUM_TP` above 1 is refused before anything
-    is read or written."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 13"):
+def test_cli_refuses_unported_flags(flags, error, tmp_path, monkeypatch):
+    """The layouts `--NUM_DEVICES N --NUM_TP T` cannot make (tensor
+    parallelism itself is ported: `test_torch_dp_cli.py`): T times the data
+    ranks not N, a `BATCH_SIZE` (2) that the data ranks do not divide, T
+    below 1, T not dividing N. Each raises before anything is read or
+    written."""
+    with pytest.raises(ValueError, match=re.escape(error)):
         run_cli(flags, monkeypatch, tmp_path)
     assert not (tmp_path / "logs").exists()
 

@@ -186,7 +186,10 @@ def compare_logs(tlogs, jlogs, loose=None):
         close(tlogs[key], want, key, atol=loose.get(key, ATOL))
 
 
-def run_dp_step(preset, ranks=2, batch_size=4, with_eval=False):
+TP_MIN_CHANNELS = 16  # tests/test_train.py::test_tp_sharded_matches_replicated
+
+
+def run_dp_step(preset, ranks=2, batch_size=4, with_eval=False, tp=1):
     """One train step of the global batch of `batch_size` three ways, from
     one JAX `TrainState` and with JAX's dropout masks and vote draws: the
     JAX step jitted over `make_mesh(ranks)` with the batch sharded
@@ -195,7 +198,12 @@ def run_dp_step(preset, ranks=2, batch_size=4, with_eval=False):
     (`torch_dp_ranks.train_step`, one thread each). JAX's adaptive rounds
     are counted by a debug callback around its `generate_hypotheses`. With
     `with_eval`, the port's eval step follows, in this process and over the
-    ranks."""
+    ranks. With `tp` > 1, the port also runs over `ranks` x `tp` gloo
+    processes laid out as `make_mesh(ranks * tp, tp=tp)` with the state
+    `shard_state_tp`'d at `TP_MIN_CHANNELS` ("tp"), and the JAX state is
+    placed by the JAX `shard_state_tp` over the same mesh (the conftest's
+    virtual CPU devices; no step is compiled over it): "jax_shards" holds
+    `jax_shard_report` of each of its devices."""
     import copy
 
     from fastposecnn_tpu.ops import voting as JV
@@ -243,10 +251,47 @@ def run_dp_step(preset, ranks=2, batch_size=4, with_eval=False):
         elogs, bank, eout = estep(single_state, j["batch"], TM.init_pose_metric_bank(),
                                   draws=eval_draws)
         single["eval"] = dict(logs=elogs, bank=bank, out=eout["aggregated"])
-    dp = mesh.launch(torch_dp_ranks.train_step, ranks,
-                     (t["hp"].to_json(), *start, j["batch"], keep, draws, j["inv_k"],
-                      eval_draws), backend="gloo", threads=1, deadline_s=300.0)
-    return dict(jstate=jstate, jlogs=jlogs, jax_rounds=jax_rounds, single=single, dp=dp)
+    args = (t["hp"].to_json(), *start, j["batch"], keep, draws, j["inv_k"], eval_draws)
+    dp = mesh.launch(torch_dp_ranks.train_step, ranks, args, backend="gloo", threads=1,
+                     deadline_s=300.0)
+    out = dict(jstate=jstate, jlogs=jlogs, jax_rounds=jax_rounds, single=single, dp=dp)
+    if tp > 1:
+        layout = mesh.make_mesh(ranks * tp, tp=tp)
+        out["tp"] = mesh.launch(torch_dp_ranks.train_step, layout.size,
+                                (*args, TP_MIN_CHANNELS), backend="gloo", threads=1,
+                                deadline_s=300.0, layout=layout)
+        out["jax_shards"] = jax_shard_report(j["state"], ranks * tp, tp)
+    return out
+
+
+def jax_shard_report(state, n_devices, tp):
+    """The JAX `shard_state_tp` of `state` over `make_mesh(n_devices, tp=tp)`
+    at `TP_MIN_CHANNELS`: (the number of parameter leaves it shards, and for
+    each device of the mesh, in rank order, `torch_dp_ranks.shard_report`'s
+    shapes and digests of the port's weight carrier applied to that
+    device's shards)."""
+
+    from fastposecnn_tpu.parallel import make_mesh, shard_state_tp
+
+    from torch_dp_ranks import digest
+
+    jmesh = make_mesh(n_devices, tp=tp)
+    placed = shard_state_tp(state, jmesh, min_channels=TP_MIN_CHANNELS)
+    n_sharded = sum("tp" in str(x.sharding.spec) for x in jax.tree.leaves(placed.params))
+    reports = []
+    for dev in jmesh.devices.reshape(-1):
+        def on_dev(x):
+            if not isinstance(x, jax.Array):
+                return x
+            (shard,) = [s for s in x.addressable_shards if s.device == dev]
+            return np.asarray(shard.data)
+
+        sd, opt, _, _ = from_jax_train_state(jax.tree.map(on_dev, placed))
+        tensors = {**sd, **{f"{part}/{k}": v for part in ("mu", "nu", "slow")
+                            for k, v in getattr(opt, part).items()}}
+        reports.append({k: (tuple(v.shape), digest([v])) for k, v in tensors.items()})
+    del placed
+    return n_sharded, reports
 
 
 def dp_train_state(rank0, num_classes):
@@ -266,14 +311,20 @@ def dp_train_state(rank0, num_classes):
     return TT.TrainState(net, opt, rank0["step"], rank0["skipped"])
 
 
-def compare_dp(r, num_classes, loose=None):
-    """The data-parallel step of `run_dp_step` against the JAX step over the
-    mesh (logs, parameters, batch statistics, slow weights at the golden
-    tolerance; moments in L2) and against the port's single-process step
-    (the same, and the gradients in L2 per tensor); the parameters,
-    statistics and optimizer state bit-equal on every rank."""
-    dp0 = r["dp"][0]
-    assert len({d["digest"] for d in r["dp"]}) == 1, "the ranks' states differ"
+def compare_dp(r, num_classes, loose=None, key="dp"):
+    """The data-parallel step of `run_dp_step` (or, with `key` "tp", its
+    dp x tp step, rank 0's state gathered over its tp group) against the
+    JAX step over the mesh (logs, parameters, batch statistics, slow
+    weights at the golden tolerance; moments in L2) and against the port's
+    single-process step (the same, and the gradients in L2 per tensor);
+    the parameters, statistics and optimizer state bit-equal on every rank
+    of one tp index, and the gathered ones on every rank."""
+    ranks = r[key]
+    dp0 = ranks[0]
+    for t in {d["coords"][1] for d in ranks}:
+        assert len({d["digest"] for d in ranks if d["coords"][1] == t}) == 1, (
+            f"the states of tp index {t} differ")
+    assert len({d["whole_digest"] for d in ranks}) == 1, "the gathered states differ"
     state = dp_train_state(dp0, num_classes)
     compare_logs(dp0["logs"], {k: float(v) for k, v in r["jlogs"].items()}, loose=loose)
     compare_states(state, r["jstate"])
