@@ -40,8 +40,8 @@ a global batch of 4, held against the same 3 full-width HEAD_TRAINING
 steps in one process; one NCCL rank held against one step), trains
 tensor-parallel (four ranks laid out dp 2 x tp 2 that share the card over
 gloo, the 59 wide convolutions' output channels and their optimizer state
-split over each tp pair, held against the same single-process steps),
-exports the
+split over each tp pair, held against the same single-process steps,
+every rank's replicated tensors bit-equal), exports the
 served pipeline with `torch.export` (K1 and K2 as the custom ops
 `fastposecnn::cc_label` and `fastposecnn::vote_count`) and answers the
 served requests from the `.pt2` loaded in a fresh process, against
@@ -49,7 +49,13 @@ served requests from the `.pt2` loaded in a fresh process, against
 as one `while_loop`), prepares a raw NOCS tree of rendered frames with
 known poses through the `create_meta` CLI, records which of cv2,
 matplotlib, pandas and PIL the machine has and holds the figures' and
-tables' refusals or output, traces the inference CLI (`--trace`), and
+tables' refusals or output, traces the inference CLI (`--trace`), serves
+the requests with a bfloat16 network (`InferenceServer(compute_dtype=
+"bfloat16")`: its logits held against the CPU's bf16 network stage by
+stage, its frames beside the float32 server's), trains with the bfloat16
+network the train loop builds on the card (MASK and HEAD steps beside
+float32 ones, a reduced-size step against the CPU's bf16 step, one epoch
+of the train CLI with the default COMPUTE_DTYPE), and
 times the kernels at the served and the evaluated shapes (K1 beside its
 floor: its launches with empty kernels), their plain versions, the
 adaptive loop's host syncs, 30 served frames, and what a host sync right
@@ -58,13 +64,21 @@ share of a HEAD_TRAINING step spent voting, the served frame of each
 encoder and of soft voting (with the share spent in its
 `hypothesis_weights`) and resnet50's train step, with CUDA events. Everything runs
 in full float32 (TF32 off), as the port's entry points compute, but for
-the network's TF32 timing, which sets the flags around a direct call.
+the network's TF32 timing, which sets the flags around a direct call, and
+the two bfloat16 phases; the phases that go through the trainers pass
+`--COMPUTE_DTYPE float32`.
 
 Every phase prints one flushed JSON line before the next begins. Any failure
 prints a traceback to stderr and exits non-zero; only a run in which every
 phase passed ends with the line
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 A watchdog dumps every thread's stack and exits non-zero after 900 s.
+
+    python3 chip_smoke.py --tp-algorithms
+
+runs only `train_tp`'s steps, with cuDNN's algorithms chosen by each rank's
+timing and with the port's deterministic heuristics, each against one
+process (`tp_algorithms_check`).
 """
 
 import contextlib
@@ -1156,9 +1170,10 @@ def phase_held_out(dev):
 # Training
 
 
-def train_setup(dev, preset, seed, h=H, w=W, classes=7, batch=3, **overrides):
-    """A port train step at `preset`, with seeded random weights and a batch
-    of seeded synthetic scenes on `dev`."""
+def train_setup(dev, preset, seed, h=H, w=W, classes=7, batch=3, network=None, **overrides):
+    """A port train step at `preset`, with seeded random weights (or the
+    network `network(hp)` builds) and a batch of seeded synthetic scenes on
+    `dev`."""
     from fastposecnn_tpu_torch import config as C
     from fastposecnn_tpu_torch.constants import CAMERA_CLASSES, scaled_intrinsics
     from fastposecnn_tpu_torch.data.synthetic import SceneConfig, make_batch
@@ -1168,7 +1183,8 @@ def train_setup(dev, preset, seed, h=H, w=W, classes=7, batch=3, **overrides):
 
     hp = preset(IMAGE_HEIGHT=h, IMAGE_WIDTH=w, SELECTED_CLASSES=CAMERA_CLASSES[:classes],
                 BATCH_SIZE=batch, **overrides)
-    net = init_random_(PoseRegressorNet(hp.num_classes, encoder_name=hp.ENCODER), seed).to(dev)
+    net = (init_random_(PoseRegressorNet(hp.num_classes, encoder_name=hp.ENCODER), seed)
+           if network is None else network(hp)).to(dev)
     opt = T.make_optimizer(hp, net)
     scenes = SceneConfig(height=h, width=w, num_classes=classes,
                          max_instances=hp.MAX_INSTANCES, max_scene_instances=6)
@@ -1309,6 +1325,62 @@ def recorded(module, name, sink):
 
     setattr(module, name, wrapper)
     return original
+
+
+@contextlib.contextmanager
+def calls_recorded(module, name):
+    """Within the block `module.name` records each call: a list of (args,
+    kwargs, result), tensors cloned."""
+    original, calls = getattr(module, name), []
+
+    def clone(x):
+        if isinstance(x, tuple):
+            return tuple(clone(v) for v in x)
+        return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+    def wrapper(*args, **kwargs):
+        out = original(*args, **kwargs)
+        calls.append(([clone(a) for a in args], {k: clone(v) for k, v in kwargs.items()},
+                      clone(out)))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, original)
+
+
+@contextlib.contextmanager
+def kernel_calls_recorded():
+    """Within the block every call of K1 (`aggregation.
+    label_components_deferred`) and of K2 (`voting.vote_counts`) is
+    recorded: {"cc_label": calls, "vote_count": calls}."""
+    from fastposecnn_tpu_torch.ops import aggregation, voting
+
+    with calls_recorded(aggregation, "label_components_deferred") as cc, \
+            calls_recorded(voting, "vote_counts") as vote:
+        yield {"cc_label": cc, "vote_count": vote}
+
+
+def hold_kernels_plain(calls, what):
+    """K1's labels and K2's counts of each call `kernel_calls_recorded`
+    kept equal their plain versions' on the same inputs; returns the
+    number of calls of each."""
+    from fastposecnn_tpu_torch.ops import voting
+    from fastposecnn_tpu_torch.ops.connected_components import label_components_reference
+
+    counts = {k: len(v) for k, v in calls.items()}
+    if not all(counts.values()):
+        raise AssertionError(f"{what}: K1 or K2 did not run ({counts})")
+    for args, _, (labels, _) in calls["cc_label"]:
+        if not torch.equal(labels, label_components_reference(*args)):
+            raise AssertionError(f"{what}: K1's labels differ from its plain version's")
+    for args, kwargs, inliers in calls["vote_count"]:
+        plain = voting.vote_counts(*args, **{**kwargs, "impl": "reference"})
+        if not torch.equal(inliers, plain):
+            raise AssertionError(f"{what}: K2's counts differ from its plain version's")
+    return counts
 
 
 def phase_train_kernels(dev, phase="train_kernels", seed=13, grads_l2=None, **overrides):
@@ -1571,11 +1643,16 @@ def snapshot_state(state):
                 step=state.step, skipped=state.skipped_updates)
 
 
-def run_train_cli(argv, trainer=None, syncs=None):
+def run_train_cli(argv, trainer=None, syncs=None, compute_dtype="float32"):
     """`cli.train.main(argv)` with its printed lines kept off the smoke's
-    output (run.log holds them); returns (state, run dir, probe)."""
+    output (run.log holds them); returns (state, run dir, probe). The
+    network computes in `--COMPUTE_DTYPE compute_dtype` (float32, the
+    precision every phase but `train_bf16` was set for), or in the
+    hparams' default with `compute_dtype` None."""
     from fastposecnn_tpu_torch.cli import train as train_cli
 
+    if compute_dtype is not None:
+        argv = [*argv, "--COMPUTE_DTYPE", compute_dtype]
     with CliProbe(trainer, syncs) as probe, contextlib.redirect_stdout(io.StringIO()):
         state, run_dir = train_cli.main(argv)
     torch.cuda.synchronize()
@@ -2542,6 +2619,27 @@ def dp_steps(hp, data, inv_k, draws, dev, seed, steps=DP_STEPS):
             by_kind)
 
 
+def replicated_digest(state) -> str:
+    """A digest of every tensor of `state` that is not a tp shard (the
+    network's other parameters and buffers and their optimizer tensors):
+    the part every rank holds whole, equal on every rank."""
+    import hashlib
+
+    from fastposecnn_tpu_torch.parallel.tp import sharded_names
+
+    sharded = sharded_names(state.net)
+    h = hashlib.sha256()
+    o = state.opt_state
+    for k, t in sorted(state.net.state_dict().items()):
+        if k not in sharded:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    for d in (o.mu, o.nu, o.slow):
+        for k in sorted(d):
+            if k not in sharded:
+                h.update(d[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def state_digest(state) -> str:
     import hashlib
 
@@ -2597,7 +2695,8 @@ def train_dp_rank(hp, data, inv_k, draws, seed, device, steps):
                library_reused=build_info.get("reused"), logs=logs, step_ms=step_ms,
                collective_ms=coll_ms, collectives=coll_n, longest_collective_ms=coll_max,
                collectives_by_kind=by_kind, launches=launches,
-               digest=state_digest(state), tf32_inside_steps=inside,
+               digest=state_digest(state), replicated_digest=replicated_digest(state),
+               tf32_inside_steps=inside,
                **tp_shards(state))
     whole = mesh.gather_state_tp(state)  # every rank of a tp group takes part
     if mesh.rank() == 0:
@@ -2777,7 +2876,10 @@ def phase_train_tp(single):
     golden tolerance (the matched xy loss within `XY_BAND_LOSS`), the rounds
     exactly; rank 0's parameters, BatchNorm statistics, moments and slow
     weights, gathered over its tp group, at the golden tolerance; the two
-    ranks of each tp index bit-equal; each rank's 59 sharded weights at
+    ranks of each tp index bit-equal; every rank's replicated tensors (all
+    but the tp shards, with their optimizer tensors) bit-equal, which needs
+    the same cuDNN algorithms on each rank of a tp group (`full_float32()`
+    takes the deterministic heuristics there); each rank's 59 sharded weights at
     cout / 2 channels; K1 `DP_STEPS` times and K2 once a round on every
     rank; TF32 off inside every rank's steps. Prints each rank's parameter
     and optimizer bytes against one process's (about 0.505 expected), its
@@ -2815,6 +2917,8 @@ def phase_train_tp(single):
     for t in range(layout.tp):
         if len({r["digest"] for r in ranks if r["coords"][1] == t}) != 1:
             raise AssertionError(f"the ranks of tp index {t} differ after the steps")
+    if len({r["replicated_digest"] for r in ranks}) != 1:
+        raise AssertionError("the ranks' replicated tensors differ after the steps")
     hold_run_state(worst, "params_and_batch_stats", ranks[0]["state_dict"],
                    single["state_dict"])
     for part in ("mu", "nu", "slow"):
@@ -2828,7 +2932,8 @@ def phase_train_tp(single):
          tp_sharded_convs=TP_SHARDED_CONVS,
          tolerance=dict(logs_params_batch_stats_moments_slow=dict(atol=2e-4, rtol=1e-4),
                         xy_loss=dict(atol=2e-4 + XY_BAND_LOSS, rtol=XY_RTOL_LOSS),
-                        rounds="exact", ranks_of_a_tp_index="bit-equal"),
+                        rounds="exact", ranks_of_a_tp_index="bit-equal",
+                        replicated_tensors_of_every_rank="bit-equal"),
          max_abs_diff=worst, vote_rounds=rounds,
          bytes_per_rank={r["rank"]: dict(params=r["param_bytes"], optimizer=r["opt_bytes"])
                          for r in ranks},
@@ -3267,6 +3372,507 @@ def phase_figures(dev, smi):
     return launches
 
 
+# -----------------------------------------------------------------------------
+# The bfloat16 network (COMPUTE_DTYPE)
+
+# A stage of the bf16 network on the card (`bf16_stage_modules`: one bf16
+# convolution, or a head), on the CPU's bf16 input to it, lies within this
+# share of the card's own bf16-vs-float32 distance of the stage from the
+# CPU's bf16 output (cuDNN's accumulation order is not the CPU's).
+BF16_STAGE_SHARE = 0.25
+# Two bf16 programs that differ by any float32 rounding drift apart through
+# a deep network (each rounding to bf16 turns a relative difference e into
+# about sqrt(e * 2^-8)) until each lies from the other as two independent
+# roundings do: about sqrt(2) times as far as each lies from float32. The
+# whole network and a whole train step on the card are held within twice
+# the card's own bf16-vs-float32 distance of the CPU's.
+BF16_WHOLE_FACTOR = 2.0
+# The logs of a bf16 train step that neither the CC instances of the
+# predicted mask nor the matching reach, within one bf16 ulp (2^-7,
+# relative) of the CPU's. (The gradients' global norm carries their drift:
+# it is held with them, in L2.)
+BF16_VOTE_FREE_LOGS = ("mask/loss_cce", "mask/loss_ce", "mask/loss_focal",
+                       "mask/task_total_loss", "pose/dense_total")
+BF16_LOG_RTOL = 2.0 ** -7
+# A gradient of a train-mode stage (`bf16_stages_train_card_vs_cpu`) on the
+# card lies within this share of its own bf16-vs-float32 distance from the
+# CPU's. A gradient carries two bf16 roundings (its cotangent's cast and the
+# convolution's data or weight gradient), and a normalization between them
+# in the decoders' conv-GroupNorm-ReLU blocks: on an H100 one such block on
+# the 96x128 step's 3x4 p5 map measured 0.32 (its input gradient; every
+# other gradient at most 0.072, float32 on the card 4.6e-7 from the CPU's,
+# and the CPU's bf16 convolutions exactly rounded there). A float32 backward
+# or a cast in the wrong place lies near 1.
+BF16_GRAD_SHARE = 0.5
+# A BatchNorm of the bf16 network computes in float32 on its bf16 input, on
+# the card as on the CPU; only its input gradient is rounded to bf16. In
+# train mode its output and gradients on the card lie within one bf16
+# rounding (relative L2) of the CPU's on the same input and cotangent.
+BF16_NORM_RTOL = 2.0 ** -8
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want|| over tensors (or lists of them), in float64
+    on the host."""
+    if isinstance(got, torch.Tensor):
+        got, want = [got], [want]
+    g = torch.cat([t.detach().double().cpu().reshape(-1) for t in got])
+    w = torch.cat([t.detach().double().cpu().reshape(-1) for t in want])
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def to_device(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_device(v, dev) for v in x)
+    return x
+
+
+def bf16_stage_modules(net, norms=False):
+    """The modules the bf16 network is held at, stage by stage: each holds
+    one bf16 convolution (a bare one, the decoders' conv-GroupNorm-ReLU
+    blocks, their top-down blocks) or is a head (its convolution and its
+    bf16 x4 upsample), so that a stage's card-vs-CPU distance is the ops'
+    own and not the drift of a chain of bf16 roundings; with `norms`, the
+    encoder's BatchNorms too."""
+    from fastposecnn_tpu_torch.models.conv import Conv2d
+    from fastposecnn_tpu_torch.models.fpn import Conv3x3GNReLU, FPNBlock, SegmentationHead
+    from fastposecnn_tpu_torch.models.resnet import BatchNorm
+
+    kinds = (Conv2d, Conv3x3GNReLU, FPNBlock, SegmentationHead) + ((BatchNorm,) if norms else ())
+    return {name: m for name, m in net.named_modules() if isinstance(m, kinds)}
+
+
+def capture_stages(net):
+    """Forward hooks on every stage of `net` (`bf16_stage_modules` with the
+    norms) that keep each stage's inputs and, through a hook on its output,
+    the cotangent the backward brings it. Returns (seen, hooks): seen[name]
+    = [inputs, cotangent]."""
+    seen = {}
+
+    def hook(module, args, out, name):
+        seen[name] = [tuple(a.detach().clone() for a in args), None]
+        out.register_hook(lambda g: seen[name].__setitem__(1, g.detach().clone()))
+
+    hooks = [m.register_forward_hook(lambda m, a, o, name=name: hook(m, a, o, name))
+             for name, m in bf16_stage_modules(net, norms=True).items()]
+    return seen, hooks
+
+
+def stage_forward_backward(module, args, cot, device):
+    """`module` on copies of `args` on `device`, pulled back with `cot`: its
+    output and the gradients of its inputs and of its parameters."""
+    xs = [a.detach().to(device, copy=True).requires_grad_(a.is_floating_point()) for a in args]
+    module.zero_grad(set_to_none=True)
+    y = module(*xs)
+    y.backward(cot.to(device, y.dtype))
+    return dict(output=y.detach(), inputs=[x.grad for x in xs if x.grad is not None],
+                params=[q.grad for q in module.parameters() if q.grad is not None])
+
+
+def bf16_stages_train_card_vs_cpu(dev, state_dict, seen, classes=7):
+    """Each stage of the bf16 network in train mode (`capture_stages`, the
+    weights `state_dict`) run forward on the CPU's bf16 input to it and
+    pulled back with the CPU step's cotangent of its output: in bf16 and in
+    float32, on the card and on the CPU. Per stage, for the output, the
+    inputs' gradients and the parameters' gradients: the card's bf16
+    distance from the CPU's bf16 and from its own float32 stage, and the
+    card's float32 distance from the CPU's float32 (relative L2). A
+    convolution stage's output is held at `BF16_STAGE_SHARE` of its
+    bf16-vs-float32 distance, its gradients at `BF16_GRAD_SHARE`; a
+    BatchNorm (batch statistics) computes the same float32 on both sides
+    and is held within `BF16_NORM_RTOL`."""
+    from fastposecnn_tpu_torch.device import full_float32
+    from fastposecnn_tpu_torch.models import PoseRegressorNet
+    from fastposecnn_tpu_torch.models.resnet import BatchNorm
+
+    def stages(dtype, device):
+        net = PoseRegressorNet(classes, dtype=dtype)
+        net.load_state_dict(state_dict)
+        return bf16_stage_modules(net.train().to(device), norms=True)
+
+    cpu = torch.device("cpu")
+    mods = {"cpu": stages(torch.bfloat16, cpu), "card": stages(torch.bfloat16, dev),
+            "card_f32": stages(torch.float32, dev), "cpu_f32": stages(torch.float32, cpu)}
+    missing = sorted(name for name, (_, cot) in seen.items() if cot is None)
+    if missing or seen.keys() != mods["cpu"].keys():
+        raise AssertionError(f"stages without a cotangent {missing} or not run "
+                             f"{sorted(mods['cpu'].keys() - seen.keys())}")
+    held = {}
+    for name, (args, cot) in seen.items():
+        got = {}
+        for which, m in ((k, v[name]) for k, v in mods.items()):
+            with full_float32():  # the step's precision and cuDNN algorithms
+                got[which] = stage_forward_backward(m, args, cot, cpu if which.startswith("cpu")
+                                                    else dev)
+        norm = isinstance(mods["cpu"][name], BatchNorm)
+        held[name] = {
+            part: dict(card_vs_cpu=rel_l2(got["card"][part], got["cpu"][part]),
+                       card_bf16_vs_f32=rel_l2(got["card"][part], got["card_f32"][part]),
+                       f32_card_vs_cpu=rel_l2(got["card_f32"][part], got["cpu_f32"][part]),
+                       norm=norm)
+            for part in ("output", "inputs", "params")}
+    return held
+
+
+def bf16_stages_train_bands(held):
+    """`bf16_stages_train_card_vs_cpu`'s distances against their bands:
+    (the worst share of each part of the convolution stages and the worst
+    distance of each part of the BatchNorms, the stages outside a band)."""
+    worst, outside = {}, []
+    for name, parts in held.items():
+        for part, d in parts.items():
+            if d["norm"]:
+                key, value, ok = f"norm_{part}_card_vs_cpu", d["card_vs_cpu"], (
+                    d["card_vs_cpu"] <= BF16_NORM_RTOL)
+            else:
+                value = d["card_vs_cpu"] / max(d["card_bf16_vs_f32"], 1e-30)
+                share = BF16_STAGE_SHARE if part == "output" else BF16_GRAD_SHARE
+                key, ok = f"conv_{part}_share", d["card_vs_cpu"] <= share * d["card_bf16_vs_f32"]
+            if not ok:
+                outside.append(dict(stage=name, part=part, **d))
+            if value > worst.get(key, (-1.0, ""))[0]:
+                worst[key] = (value, name)
+    return {k: dict(value=v, stage=n) for k, (v, n) in worst.items()}, outside
+
+
+def bf16_network_card_vs_cpu(dev, state_dict, image, classes=7):
+    """The bf16 network with `state_dict` (eval mode) on `image`, on the card
+    (in `full_float32()`, as the server runs it) and on the CPU: per logit,
+    the card's distance from the CPU's and from its own float32 network on
+    the card; per stage (`bf16_stage_modules`), the same for the card's
+    stage run on the CPU's bf16 input to it. Relative L2 distances."""
+    from fastposecnn_tpu_torch.device import full_float32
+    from fastposecnn_tpu_torch.models import PoseRegressorNet
+
+    def network(dtype, device):
+        net = PoseRegressorNet(classes, dtype=dtype)
+        net.load_state_dict(state_dict)
+        return net.eval().to(device)
+
+    cpu16, seen = network(torch.bfloat16, "cpu"), {}
+    hooks = [m.register_forward_hook(lambda m, args, out, name=name: seen.__setitem__(
+        name, (args, out))) for name, m in bf16_stage_modules(cpu16).items()]
+    with torch.inference_mode():
+        want = cpu16(image.cpu())
+    for hook in hooks:
+        hook.remove()
+    card16, card32 = network(torch.bfloat16, dev), network(torch.float32, dev)
+    stages = {}
+    with torch.inference_mode(), full_float32():
+        got, ref = card16(image), card32(image)
+        mods16, mods32 = bf16_stage_modules(card16), bf16_stage_modules(card32)
+        for name, (args, out) in seen.items():
+            args = to_device(args, dev)
+            out16, out32 = mods16[name](*args), mods32[name](*args)
+            stages[name] = dict(card_vs_cpu=rel_l2(out16, out), card_bf16_vs_f32=rel_l2(out16, out32),
+                                dtype=str(out16.dtype).removeprefix("torch."))
+    if any(t.dtype != torch.float32 for t in (*got.values(), *want.values())):
+        raise AssertionError("a bf16 network returned logits other than float32")
+    whole = {k: dict(card_vs_cpu=rel_l2(got[k], want[k]), card_bf16_vs_f32=rel_l2(got[k], ref[k]))
+             for k in want}
+    return whole, stages
+
+
+def hold_bf16_network(whole, stages):
+    """`bf16_network_card_vs_cpu`'s distances within their bands: each stage
+    `BF16_STAGE_SHARE`, each logit `BF16_WHOLE_FACTOR` x the card's own
+    bf16-vs-float32 distance."""
+    for name, d in stages.items():
+        if not d["card_vs_cpu"] <= BF16_STAGE_SHARE * d["card_bf16_vs_f32"]:
+            raise AssertionError(f"bf16 stage {name}: card vs CPU {d}")
+    for k, d in whole.items():
+        if not (math.isfinite(d["card_vs_cpu"])
+                and d["card_vs_cpu"] <= BF16_WHOLE_FACTOR * d["card_bf16_vs_f32"]):
+            raise AssertionError(f"bf16 logits {k}: card vs CPU {d}")
+
+
+def phase_serve_bf16(dev, smi, server, requests=4, frames=30):
+    """`InferenceServer(compute_dtype="bfloat16")`, the counterpart of the
+    network `bench.py` serves on its chip: the INFERENCE preset at 480x640,
+    batch 1, the serve phase's seeded weights (equal to the float32
+    server's), every convolution in bf16, float32 logits. It answers the
+    serve phase's requests (K1 and K2 once a frame, finite answers of the
+    served shapes); K1's labels and K2's counts of every call in a bf16
+    frame equal their plain versions' on the inputs each call was given;
+    its logits on the card are held against the CPU's bf16
+    forward of the same weights and image, stage by stage
+    (`bf16_network_card_vs_cpu`). Then 30 CUDA-event frames of each server
+    on the same image and draws, in interleaved pairs: medians and
+    quartiles; the network alone; and from a profiler trace of 10 frames
+    of each the card's busy ms a frame and its idle share."""
+    from fastposecnn_tpu_torch import kernels
+    from fastposecnn_tpu_torch.device import full_float32
+    from fastposecnn_tpu_torch.models.conv import Conv2d
+    from fastposecnn_tpu_torch.serve import InferenceServer
+    from fastposecnn_tpu_torch.utils.export import make_draws
+
+    server16 = InferenceServer(device=dev, seed=0, compute_dtype="bfloat16")
+    net = server16.net
+    convs = {m.compute_dtype for m in net.modules() if isinstance(m, Conv2d)}
+    if net.dtype != torch.bfloat16 or convs != {torch.bfloat16}:
+        raise AssertionError(f"the bf16 server built a {net.dtype} network ({convs})")
+    sd16, sd32 = net.state_dict(), server.net.state_dict()
+    if sd16.keys() != sd32.keys() or not all(torch.equal(sd16[k], sd32[k]) for k in sd32):
+        raise AssertionError("the bf16 server's weights are not the float32 server's")
+    images = served_images(dev, requests)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    answers = [server16(img) for img in images]
+    torch.cuda.synchronize()
+    launches = {k: kernels.launch_counts()[k] for k in PATH_KERNELS}
+    check_answers(answers)
+    if launches != {k: requests for k in PATH_KERNELS}:
+        raise AssertionError(f"the bf16 server launched {launches} for {requests} frames")
+    with kernel_calls_recorded() as calls:
+        server16(images[0])
+    equal_plain = hold_kernels_plain(calls, "the bf16 frame")
+    whole, stages = bf16_network_card_vs_cpu(dev, {k: v.cpu() for k, v in sd16.items()},
+                                             images[0])
+
+    draws = make_draws(server.config, 1, 7, dev)
+    t32, t16 = paired_ms(lambda: server(images[0], draws), lambda: server16(images[0], draws),
+                         pairs=frames)
+    with torch.inference_mode(), full_float32():
+        network_ms = {"float32": median_ms(lambda: server.net(images[0]), iters=20),
+                      "bfloat16": median_ms(lambda: net(images[0]), iters=20)}
+    frame = {}
+    for name, srv, times in (("float32", server, t32), ("bfloat16", server16, t16)):
+        (busy_us, ops), traces = whole_trace(lambda srv=srv: srv(images[0], draws), calls=10,
+                                             whole=False)
+        med, busy = statistics.median(times), sum(busy_us.values()) / 1e3
+        frame[name] = dict(ms=med, quartiles_ms=[float(q) for q in np.percentile(times, [25, 75])],
+                           frames=len(times), network_ms=network_ms[name], device_busy_ms=busy,
+                           idle_share=1 - busy / med, device_ops_per_frame=ops, traces=traces)
+    emit("serve_bf16", card=smi, requests=requests, launches=launches,
+         valid_instances=[int((a[1] > 0).sum()) for a in answers],
+         calls_equal_plain=equal_plain,
+         logits_card_vs_cpu=dict(hw=[H, W], stage_share=BF16_STAGE_SHARE,
+                                 whole_factor=BF16_WHOLE_FACTOR, whole=whole, stages=stages),
+         served_frame=frame)
+    hold_bf16_network(whole, stages)
+    return launches
+
+
+def bf16_step_card_vs_cpu(dev, h=96, w=128):
+    """One HEAD_TRAINING step at a reduced size (96x128, 7 classes, batch 2,
+    8 slots, 256 points, 64 hypotheses) from one seeded state, with the
+    network in bf16 on the card and on the CPU and in float32 on the card,
+    on the same batch, dropout masks and vote draws. Held stage by stage in
+    train mode (`bf16_stages_train_card_vs_cpu`: each stage on the CPU
+    step's bf16 input to it and pulled back with the CPU step's cotangent
+    of its output; outputs, input and parameter gradients), and, as a
+    sanity check of the whole step, the gradients, the parameter updates
+    and the BatchNorm statistics (relative L2 over every tensor) of the
+    card's bf16 step within `BF16_WHOLE_FACTOR` x their distance from the
+    card's float32 step; the vote-free logs within `BF16_LOG_RTOL` of the
+    CPU's. The matched terms follow the instances the argmax of the bf16
+    logits makes: reported."""
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch.models import PoseRegressorNet
+    from fastposecnn_tpu_torch.models.weights import init_random_
+    from fastposecnn_tpu_torch.ops.voting import VoteDraws
+
+    kw = dict(h=h, w=w, batch=2, MAX_INSTANCES=8, MAX_VOTE_POINTS=256, HV_NUM_OF_HYPOTHESES=64)
+
+    def setup(device, dtype):
+        return train_setup(device, C.head_training, seed=14, network=lambda hp: init_random_(
+            PoseRegressorNet(hp.num_classes, dtype=dtype), 14), **kw)
+
+    runs = {"card": setup(dev, torch.bfloat16), "cpu": setup(torch.device("cpu"), torch.bfloat16),
+            "card_f32": setup(dev, torch.float32)}
+    hp, gen = runs["cpu"]["hp"], torch.Generator().manual_seed(5)
+    keep = runs["cpu"]["state"].net.draw_dropout_keep(2, "cpu", gen)
+    b, n, p = 2, hp.MAX_INSTANCES, hp.MAX_VOTE_POINTS
+    draws = VoteDraws(ux=torch.rand((b, n, p), generator=gen),
+                      uy=torch.rand((b, n, p), generator=gen),
+                      pairs=torch.randint(0, p, (20, b * n, hp.HV_NUM_OF_HYPOTHESES, 2),
+                                          generator=gen))
+    before = {k: v.detach().cpu().clone() for k, v in runs["cpu"]["state"].net.state_dict().items()}
+    seen, hooks = capture_stages(runs["cpu"]["state"].net)
+    logs, tensors = {}, {}
+    for name, r in runs.items():
+        d = r["batch"]["image"].device
+        r["state"], lg = r["step"](r["state"], r["batch"], seed=0,
+                                   dropout_keep={k: v.to(d) for k, v in keep.items()},
+                                   draws=VoteDraws(ux=draws.ux.to(d), uy=draws.uy.to(d),
+                                                   pairs=draws.pairs.to(d)))
+        logs[name] = {k: float(v) for k, v in lg.items()}
+        net = r["state"].net
+        sd = net.state_dict()
+        names = [k for k, q in net.named_parameters() if q.grad is not None]
+        tensors[name] = dict(
+            gradients=[dict(net.named_parameters())[k].grad for k in names],
+            updates=[sd[k].cpu() - before[k] for k in names],
+            statistics=[sd[k] for k in sorted(sd) if k.endswith(("running_mean", "running_var"))])
+    for hook in hooks:
+        hook.remove()
+    stages = bf16_stages_train_card_vs_cpu(dev, before, seen)
+    held = {part: dict(card_vs_cpu=rel_l2(tensors["card"][part], tensors["cpu"][part]),
+                       card_bf16_vs_f32=rel_l2(tensors["card"][part], tensors["card_f32"][part]))
+            for part in tensors["cpu"]}
+    log_rel = {k: abs(logs["card"][k] - v) / max(abs(v), 1e-30) for k, v in logs["cpu"].items()}
+    worst, outside = bf16_stages_train_bands(stages)
+    out = dict(hw=[h, w], batch=2, whole_factor=BF16_WHOLE_FACTOR, log_rtol=BF16_LOG_RTOL,
+               tensors=held, log_relative_diff=log_rel, logs=logs,
+               stages_train=dict(count=len(stages), stage_share=BF16_STAGE_SHARE,
+                                 grad_share=BF16_GRAD_SHARE, norm_rtol=BF16_NORM_RTOL,
+                                 worst=worst, outside=outside))
+    emit("train_bf16_card_vs_cpu", **out)
+    if outside:
+        raise AssertionError(f"bf16 train-mode stages outside their bands: {outside}")
+    for part, d in held.items():
+        if not d["card_vs_cpu"] <= BF16_WHOLE_FACTOR * d["card_bf16_vs_f32"]:
+            raise AssertionError(f"bf16 step {part}: card vs CPU {d}")
+    for k, v in logs["cpu"].items():
+        if not math.isfinite(logs["card"][k]):
+            raise AssertionError(f"bf16 step log {k} is not finite on the card")
+        if k in BF16_VOTE_FREE_LOGS and not log_rel[k] <= BF16_LOG_RTOL:
+            raise AssertionError(f"bf16 step log {k}: card {logs['card'][k]}, CPU {v}")
+    return out
+
+
+def phase_train_bf16(dev, smi):
+    """Training with the network in bf16, built as `train/loop.py` builds it
+    (`loop.initial_network`: the default COMPUTE_DTYPE on CUDA), at full
+    width (480x640, 7 classes, batch 3, in-memory synthetic scenes): 8
+    MASK_TRAINING steps at LEARNING_RATE 3e-3 (the loss falls, no kernel
+    runs) and 6 HEAD_TRAINING steps (finite, no skipped update, K1 once a
+    step and K2 once a RANSAC round). Forward hooks check that every
+    convolution's output is bf16; every parameter, buffer and optimizer
+    tensor stays float32. The same steps with the float32 network (the
+    same weights and batches) in the same call: ms a step (medians after
+    the first) and, from a profiler trace of 3 more steps, the card's busy
+    ms a step and its idle share; in one more bf16 HEAD step each call of
+    K1 and K2 equals its plain version on the inputs it was given. Then
+    `bf16_step_card_vs_cpu`, and one
+    epoch of the train CLI with the default COMPUTE_DTYPE, whose run.log
+    must name bfloat16. Returns the kernels' launches of the HEAD steps and
+    the CLI run."""
+    import logging
+    import os
+
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch import kernels
+    from fastposecnn_tpu_torch.models.conv import Conv2d
+    from fastposecnn_tpu_torch.train import loop
+
+    records = []
+    flog = logging.getLogger("chip_smoke.train_bf16")
+    flog.setLevel(logging.INFO)
+    flog.propagate = False
+    handler = logging.Handler()
+    handler.emit = lambda rec: records.append(rec.getMessage())
+    flog.addHandler(handler)
+
+    def setup(preset, seed, **overrides):
+        return train_setup(dev, preset, seed,
+                           network=lambda hp: loop.initial_network(hp, dev, flog), **overrides)
+
+    conv_dtypes = {}
+
+    def count_conv(module, args, out):
+        conv_dtypes[str(out.dtype)] = conv_dtypes.get(str(out.dtype), 0) + 1
+
+    steps, launches, out = {"mask_training": 8, "head_training": 6}, {}, {}
+    for preset_name, preset, seed, kw in (("mask_training", C.mask_training, 11,
+                                           dict(LEARNING_RATE=3e-3)),
+                                          ("head_training", C.head_training, 12, {})):
+        runs = {"bfloat16": setup(preset, seed, **kw),
+                "float32": setup(preset, seed, COMPUTE_DTYPE="float32", **kw)}
+        net = runs["bfloat16"]["state"].net
+        if net.dtype != torch.bfloat16 or runs["float32"]["state"].net.dtype != torch.float32:
+            raise AssertionError(f"{preset_name}: the loop built {net.dtype} for the default")
+        convs = [m for m in net.modules() if isinstance(m, Conv2d)]
+        hooks = [m.register_forward_hook(count_conv) for m in convs]
+        conv_dtypes.clear()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        logs, ms16, _ = timed_steps(runs["bfloat16"], steps[preset_name])
+        counts = {k: kernels.launch_counts()[k] for k in PATH_KERNELS}
+        for hook in hooks:
+            hook.remove()
+        if conv_dtypes != {"torch.bfloat16": len(convs) * steps[preset_name]}:
+            raise AssertionError(f"{preset_name}: conv outputs {conv_dtypes}, "
+                                 f"{len(convs)} convs x {steps[preset_name]} steps")
+        st = runs["bfloat16"]["state"]
+        tensors = [*st.net.parameters(), *st.net.buffers(),
+                   *(v for part in (st.opt_state.mu, st.opt_state.nu, st.opt_state.slow)
+                     for v in part.values())]
+        if any(t.dtype not in (torch.float32, torch.int64) for t in tensors):
+            raise AssertionError(f"{preset_name}: a parameter, buffer or moment is not float32")
+        if not all(math.isfinite(v) for lg in logs for v in lg.values()):
+            raise AssertionError(f"{preset_name}: non-finite bf16 logs {logs}")
+        if any(lg["grad/finite"] != 1.0 for lg in logs) or st.skipped_updates:
+            raise AssertionError(f"{preset_name}: {st.skipped_updates} skipped bf16 updates")
+        losses = [lg["pose/total_loss"] for lg in logs]
+        if preset_name == "mask_training":
+            if not losses[-1] < losses[0] or any(counts.values()):
+                raise AssertionError(f"bf16 MASK_TRAINING: losses {losses}, launches {counts}")
+        else:
+            rounds = [int(lg["pose/vote_rounds"]) for lg in logs]
+            if counts != {"cc_label": 6, "vote_count": sum(rounds)}:
+                raise AssertionError(f"bf16 HEAD_TRAINING launches {counts}, rounds {rounds}")
+            launches = counts
+            # One more step, outside the counted ones: each K1 and K2 call
+            # in it against its plain version on the inputs it was given.
+            with kernel_calls_recorded() as calls:
+                run = runs["bfloat16"]
+                run["state"], _ = run["step"](run["state"], run["batch"], seed=2)
+            equal_plain = hold_kernels_plain(calls, "a bf16 HEAD step")
+        _, ms32, _ = timed_steps(runs["float32"], 5)
+        timing = {}
+        for dtype, run, times in (("bfloat16", runs["bfloat16"], ms16),
+                                  ("float32", runs["float32"], ms32)):
+            def one_step(run=run):
+                run["state"], _ = run["step"](run["state"], run["batch"], seed=1)
+            (by_kernel, ops), traces = whole_trace(one_step, calls=3, whole=False)
+            med, busy = statistics.median(times[1:]), sum(by_kernel.values()) / 1e3
+            timing[dtype] = dict(ms_per_step_median=med, ms_per_step=times,
+                                 device_busy_ms=busy, idle_share=1 - busy / med,
+                                 device_ops_per_step=ops, traces=traces)
+        out[preset_name] = dict(steps=steps[preset_name], total_loss=losses, launches=counts,
+                                conv_outputs=conv_dtypes.copy(), **timing)
+        if preset_name == "head_training":
+            out[preset_name]["calls_equal_plain"] = equal_plain
+        del runs
+    if f"network compute dtype: bfloat16 (COMPUTE_DTYPE=bfloat16 on {dev.type})" not in records:
+        raise AssertionError(f"the loop's log: {records}")
+    flog.removeHandler(handler)
+    card_vs_cpu = bf16_step_card_vs_cpu(dev)
+
+    with tempfile.TemporaryDirectory(prefix="fpcnn_train_bf16_") as tmp:
+        old_logs = os.environ.get("LOGS")
+        os.environ["LOGS"] = tmp
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            state, run_dir, probe = run_train_cli(
+                ["-e", "SMOKE_BF16", "--preset", "HEAD_TRAINING", "--synthetic", "3",
+                 "--IMAGE_HEIGHT", str(H), "--IMAGE_WIDTH", str(W), "--BATCH_SIZE", "3",
+                 "--SELECTED_CLASSES", *C.HParams().SELECTED_CLASSES, "--NUM_WORKERS", "2",
+                 "--epochs", "1", "--bank_pool_dir", f"{tmp}/banks", "--no_tb",
+                 "--device", dev.type], compute_dtype=None)
+            cli_launches = {k: kernels.launch_counts()[k] for k in PATH_KERNELS}
+            log = (run_dir / "run.log").read_text()
+        finally:
+            if old_logs is None:
+                os.environ.pop("LOGS", None)
+            else:
+                os.environ["LOGS"] = old_logs
+    if f"network compute dtype: bfloat16 (COMPUTE_DTYPE=bfloat16 on {dev.type})" not in log:
+        raise AssertionError("the train CLI's run.log does not name bfloat16")
+    if state.net.dtype != torch.bfloat16 or state.skipped_updates or min(cli_launches.values()) < 1:
+        raise AssertionError(f"the bf16 train CLI: {state.net.dtype}, "
+                             f"{state.skipped_updates} skipped, launches {cli_launches}")
+    emit("train_bf16", card=smi, hw=[H, W], batch=3, classes=7, **out,
+         card_vs_cpu=card_vs_cpu,
+         train_cli=dict(epochs=1, train_steps=state.step, launches=cli_launches,
+                        run_log_names_bfloat16=True))
+    return {k: launches[k] + cli_launches[k] for k in PATH_KERNELS}
+
+
 def deterministic_caller_order_check():
     """Run as `chip_smoke.py --deterministic-caller-order-check`, in a fresh
     process: the network with seeded random weights at batch 2, 480x640,
@@ -3307,6 +3913,73 @@ def deterministic_caller_order_check():
     print(json.dumps(dict(caller_first_call_ms=first_ms, full_float32_after_ms=after_ms,
                           second_caller_deterministic_off_first_call_ms=second_ms,
                           full_float32_after_both_callers_ms=residual_ms)), flush=True)
+
+
+@contextlib.contextmanager
+def timed_float32():
+    """`device.full_float32()` as it was before it took cuDNN's heuristics
+    inside a tensor-parallel group: cuDNN's algorithms chosen by each
+    rank's own timing there too."""
+    from fastposecnn_tpu_torch.device import body_deterministic
+
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.benchmark,
+             b.cudnn.deterministic)
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    b.cudnn.benchmark, b.cudnn.deterministic = True, body_deterministic(saved[0], saved[3])
+    try:
+        yield
+    finally:
+        (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.benchmark,
+         b.cudnn.deterministic) = saved
+
+
+def train_tp_flags_rank(flags, *args):
+    """`train_dp_rank` with the train step's float32 context `flags`:
+    "port" (`device.full_float32()`) or "timed" (`timed_float32`)."""
+    from fastposecnn_tpu_torch.train import task as T
+
+    if flags == "timed":
+        T.full_float32 = timed_float32
+    out = train_dp_rank(*args)
+    return {k: v for k, v in out.items() if k not in ("state_dict", "opt")}
+
+
+def tp_algorithms_check():
+    """Run as `chip_smoke.py --tp-algorithms`: `train_tp`'s (dp 2, tp 2)
+    steps (four gloo ranks sharing the card, `train_dp`'s inputs and
+    draws) once with cuDNN's algorithms chosen by each rank's timing
+    (`timed_float32`) and once with the port's `full_float32()` (the
+    deterministic heuristics in a tp group), each against one process's
+    steps. Prints one JSON line per run: each rank's matched xy loss minus
+    one process's, step by step (the quantity `train_tp` holds within
+    0.1 px and 1e-4 of its value), whether every rank's replicated tensors
+    are bit-equal, and each rank's ms a step; then the card's name and
+    power limit."""
+    from fastposecnn_tpu_torch.kernels.build import load_library
+    from fastposecnn_tpu_torch.parallel import mesh
+
+    _, smi = phase_device()
+    dev = torch.device("cuda")
+    load_library()
+    set_tf32(False, False)
+    hp, data, inv_k, draws = dp_setup(batch=4, seed=21)
+    seed = 22
+    _, logs, single_ms, *_ = dp_steps(hp, data, inv_k, draws, dev, seed)
+    layout = mesh.make_mesh(TP_LAYOUT[0] * TP_LAYOUT[1], tp=TP_LAYOUT[1])
+    for flags in ("timed", "port"):
+        torch.cuda.empty_cache()
+        ranks = mesh.launch(train_tp_flags_rank, layout.size,
+                            (flags, hp, data, inv_k, draws, seed, "cuda:0", DP_STEPS),
+                            backend="gloo", deadline_s=DP_DEADLINE_S, layout=layout)
+        emit("tp_algorithms", card=smi, flags=flags,
+             xy_minus_single=[[got["xy/loss_xy"] - want["xy/loss_xy"]
+                               for got, want in zip(r["logs"], logs)] for r in ranks],
+             single_xy=[lg["xy/loss_xy"] for lg in logs],
+             replicated_bit_equal=len({r["replicated_digest"] for r in ranks}) == 1,
+             ms_per_step_per_rank={r["rank"]: r["step_ms"] for r in ranks},
+             single_process_ms_per_step=single_ms)
+    print(smi, flush=True)
 
 
 def probe_kernel_lines(probe_lines, probe_launches, errs):
@@ -3377,6 +4050,8 @@ def main():
     new_paths["export"] = phase_export(dev, smi, server)
     phase_create_meta(dev, smi)
     new_paths["figures"] = phase_figures(dev, smi)
+    new_paths["serve_bf16"] = phase_serve_bf16(dev, smi, server)
+    new_paths["train_bf16"] = phase_train_bf16(dev, smi)
     for k in kernels:
         name = k["name"]
         k["launches_by_path"] = {"serve": launches[name],
@@ -3406,6 +4081,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--deterministic-caller-order-check"]:
         deterministic_caller_order_check()
+    elif sys.argv[1:] == ["--tp-algorithms"]:
+        tp_algorithms_check()
     elif sys.argv[1:2] == ["--run-exported"] and len(sys.argv) == 5:
         run_exported(*sys.argv[2:])
     else:

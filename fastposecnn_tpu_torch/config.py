@@ -5,10 +5,11 @@ at :35-180, the presets at :196-269, `add_cli_overrides`/
 `apply_cli_overrides` at :280+, `staged_plateau_defaults` at :318-336,
 `merge_from_checkpoint`, `pipeline_config_from` at :356-376).
 
-`COMPUTE_DTYPE` is kept for the JSON round trip: the JAX trainer honours
-"bfloat16" only on a TPU (`train/loop.py:195-196`), and the port computes
-in float32 whatever it says. A checkpoint's hparams JSON may hold fields
-this copy lacks; `from_json` drops them.
+`COMPUTE_DTYPE` is the trainers' network compute dtype: "bfloat16" (the
+default) gives a bfloat16 network on CUDA and float32 on the CPU, any other
+value float32 (`device.compute_dtype`, the JAX trainer's rule at
+`train/loop.py:195-196` with the card in the TPU's place). A checkpoint's
+hparams JSON may hold fields this copy lacks; `from_json` drops them.
 """
 
 from __future__ import annotations
@@ -122,7 +123,8 @@ class HParams:
     MAX_VOTE_POINTS: int = 1024
     IMAGE_HEIGHT: int = 480
     IMAGE_WIDTH: int = 640
-    # Kept for the JSON round trip; the port computes in float32.
+    # The trainers' network compute dtype on CUDA (`device.compute_dtype`);
+    # params stay float32.
     COMPUTE_DTYPE: str = "bfloat16"
 
     @property

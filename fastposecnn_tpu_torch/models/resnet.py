@@ -20,6 +20,12 @@ running statistics as flax does (`models/resnet.py:53-59` of the JAX
 package): momentum 0.9 on the batch mean and that biased batch variance,
 where `nn.BatchNorm2d` would take the unbiased one.
 
+Every convolution computes in the encoder's `dtype` (`models.conv.Conv2d`,
+flax's `nn.Conv(dtype=...)`); every BatchNorm normalizes its input cast to
+float32 and returns float32, as the JAX blocks' `dtype=jnp.float32` norms
+(`models/resnet.py:40-169`), so the residual adds, the ReLUs, the max pool
+and the pyramid's features are float32 whatever `dtype` is.
+
 The stem max pool is `nn.MaxPool2d`: its backward routes each window's
 cotangent to the first maximum in row-major order, the tie rule of the JAX
 package's custom VJP (`ops/pooling.py`).
@@ -33,6 +39,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from fastposecnn_tpu_torch.models.conv import Conv2d
 from fastposecnn_tpu_torch.parallel import mesh
 
 FLAX_MOMENTUM = 0.9
@@ -58,7 +65,9 @@ class BatchNorm(nn.BatchNorm2d):
     default fast variance: from the per-channel sum and sum of squares, the
     mean and the biased variance E[x^2] - E[x]^2 clamped at 0; it updates
     the running statistics as flax does, r <- 0.9 r + 0.1 s, from the same
-    mean and variance.
+    mean and variance. In both modes an input of another dtype than the
+    parameters' (bf16, from a bf16 convolution) is cast to theirs (float32)
+    first, and the output is in it (flax's `nn.BatchNorm(dtype=jnp.float32)`).
 
     Inside a process group (`parallel.mesh`), the batch is the global one:
     the sums are summed over the dp ranks in one all-reduce that carries
@@ -68,6 +77,7 @@ class BatchNorm(nn.BatchNorm2d):
     without the all-reduce."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype)
         if not self.training:
             return super().forward(x)
         c = x.shape[1]
@@ -91,26 +101,28 @@ class BatchNorm(nn.BatchNorm2d):
         self.num_batches_tracked.add_(1)
 
 
-def _downsample(in_ch: int, out_ch: int, stride: int):
+def _downsample(in_ch: int, out_ch: int, stride: int, dtype: torch.dtype):
     """The residual's 1x1 projection where its shape differs from the
     block's output (the JAX block's `residual.shape != y.shape`)."""
     if stride == 1 and in_ch == out_ch:
         return None
-    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
+    return nn.Sequential(Conv2d(in_ch, out_ch, 1, stride=stride, bias=False,
+                                compute_dtype=dtype),
                          BatchNorm(out_ch, eps=1e-5))
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, in_ch: int, width: int, stride: int = 1):
+    def __init__(self, in_ch: int, width: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, width, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv1 = Conv2d(in_ch, width, 3, stride=stride, padding=1,
+                            bias=False, compute_dtype=dtype)
         self.bn1 = BatchNorm(width, eps=1e-5)
-        self.conv2 = nn.Conv2d(width, width, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(width, width, 3, padding=1, bias=False, compute_dtype=dtype)
         self.bn2 = BatchNorm(width, eps=1e-5)
-        self.downsample = _downsample(in_ch, width, stride)
+        self.downsample = _downsample(in_ch, width, stride, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
@@ -123,17 +135,18 @@ class BottleneckBlock(nn.Module):
     """1x1 to `width`, 3x3 at `stride`, 1x1 to 4 `width`."""
     expansion = 4
 
-    def __init__(self, in_ch: int, width: int, stride: int = 1):
+    def __init__(self, in_ch: int, width: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         out_ch = width * self.expansion
-        self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, width, 1, bias=False, compute_dtype=dtype)
         self.bn1 = BatchNorm(width, eps=1e-5)
-        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv2 = Conv2d(width, width, 3, stride=stride, padding=1,
+                            bias=False, compute_dtype=dtype)
         self.bn2 = BatchNorm(width, eps=1e-5)
-        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
+        self.conv3 = Conv2d(width, out_ch, 1, bias=False, compute_dtype=dtype)
         self.bn3 = BatchNorm(out_ch, eps=1e-5)
-        self.downsample = _downsample(in_ch, out_ch, stride)
+        self.downsample = _downsample(in_ch, out_ch, stride, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
@@ -144,9 +157,10 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNetEncoder(nn.Module):
-    """The encoder `name` of `RESNET_SPECS`; any other name raises."""
+    """The encoder `name` of `RESNET_SPECS`, its convolutions in `dtype`;
+    any other name raises."""
 
-    def __init__(self, name: str = "resnet18"):
+    def __init__(self, name: str = "resnet18", dtype: torch.dtype = torch.float32):
         super().__init__()
         if name not in RESNET_SPECS:
             raise ValueError(f"unknown encoder {name!r}; one of {sorted(RESNET_SPECS)}")
@@ -154,14 +168,14 @@ class ResNetEncoder(nn.Module):
         self.encoder_name = name
         self.out_channels = spec.out_channels
         block = BasicBlock if spec.block == "basic" else BottleneckBlock
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False, compute_dtype=dtype)
         self.bn1 = BatchNorm(64, eps=1e-5)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         in_ch = 64
         for i, (blocks, width) in enumerate(zip(spec.stage_sizes, (64, 128, 256, 512))):
             layer = []
             for b in range(blocks):
-                layer.append(block(in_ch, width, 2 if (b == 0 and i > 0) else 1))
+                layer.append(block(in_ch, width, 2 if (b == 0 and i > 0) else 1, dtype))
                 in_ch = width * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
 

@@ -9,20 +9,22 @@ column-parallel pattern over the tp group of `parallel.mesh`):
   - it holds this rank's contiguous cout / tp rows of the weight (torch's
     [cout, cin, kh, kw], dim 0) and the whole bias, which the rule leaves
     replicated (it is 1-D);
-  - its forward computes its slice of the output channels and all-gathers
-    them over the tp group, then adds the bias: the ranks of a tp group
-    hold the same batch rows, so everything after the gather (BatchNorm,
-    GroupNorm, the heads, the pipeline) is computed alike on each, as
-    GSPMD replicates it;
+  - its forward computes its slice of the output channels in the
+    convolution's compute dtype (`models.conv.Conv2d`: bfloat16 in a bf16
+    network), all-gathers them over the tp group in that dtype, then adds
+    the bias in it: the ranks of a tp group hold the same batch rows, so
+    everything after the gather (BatchNorm, GroupNorm, the heads, the
+    pipeline) is computed alike on each, as GSPMD replicates it;
   - its backward takes this rank's slice of the (replicated) output
     gradient, from which the weight's gradient is this rank's slice of the
     whole one; the input's gradient is a partial sum over the tp ranks, so
     the input goes through an identity whose backward all-reduces it over
-    the tp group.
+    the tp group, in the input's dtype (before the cast to the compute
+    dtype).
 
-`shard_network_` swaps every shardable `nn.Conv2d` of a network for one;
-`gathered_network` makes a plain copy back. Nothing here falls back: a
-collective that fails raises.
+`shard_network_` swaps every shardable `nn.Conv2d` of a network for one,
+keeping its compute dtype; `gathered_network` makes a `Conv2d` copy back.
+Nothing here falls back: a collective that fails raises.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fastposecnn_tpu_torch.models.conv import Conv2d
 from fastposecnn_tpu_torch.parallel import mesh
 
 
@@ -84,7 +87,8 @@ class _GatherTP(torch.autograd.Function):
 class TPConv2d(nn.Module):
     """An `nn.Conv2d` (groups 1, zero padding) with its output channels
     sharded over the tp group: this rank's rows `index` of `tp` of the
-    weight, the whole bias, the whole output."""
+    weight, the whole bias, the whole output, computed in the convolution's
+    compute dtype (float32 for a plain `nn.Conv2d`)."""
 
     def __init__(self, conv: nn.Conv2d, tp: int, index: int):
         super().__init__()
@@ -94,6 +98,7 @@ class TPConv2d(nn.Module):
         self.kernel_size, self.stride = conv.kernel_size, conv.stride
         self.padding, self.dilation = conv.padding, conv.dilation
         self.tp, self.index = tp, index
+        self.compute_dtype = getattr(conv, "compute_dtype", torch.float32)
         self.weight = nn.Parameter(local_slice(conv.weight, tp, index),
                                    requires_grad=conv.weight.requires_grad)
         self.weight.tp_sharded = True
@@ -106,10 +111,11 @@ class TPConv2d(nn.Module):
         self.weight.tp_sharded = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(_CopyToTP.apply(x), self.weight, None, self.stride, self.padding,
-                     self.dilation)
+        dt = self.compute_dtype
+        y = F.conv2d(_CopyToTP.apply(x).to(dt), self.weight.to(dt), None, self.stride,
+                     self.padding, self.dilation)
         y = _GatherTP.apply(y)
-        return y if self.bias is None else y + self.bias[None, :, None, None]
+        return y if self.bias is None else y + self.bias.to(dt)[None, :, None, None]
 
 
 def is_sharded(p: torch.Tensor) -> bool:
@@ -120,7 +126,7 @@ def is_sharded(p: torch.Tensor) -> bool:
 def shardable(module: nn.Module, tp: int, min_channels: int) -> bool:
     """The JAX rule on a convolution: its output channels divide `tp` and
     number at least `min_channels`."""
-    return (type(module) is nn.Conv2d and module.out_channels % tp == 0
+    return (type(module) in (nn.Conv2d, Conv2d) and module.out_channels % tp == 0
             and module.out_channels >= min_channels)
 
 
@@ -141,16 +147,16 @@ def sharded_names(net: nn.Module) -> Set[str]:
 
 
 def gathered_network(net: nn.Module) -> nn.Module:
-    """A copy of `net` with each `TPConv2d` a plain `nn.Conv2d` of the
-    gathered weight (a collective over the tp group)."""
+    """A copy of `net` with each `TPConv2d` a `Conv2d` of the gathered weight
+    in its compute dtype (a collective over the tp group)."""
     full = copy.deepcopy(net)
     for name, module in list(full.named_modules()):
         for child_name, child in list(module.named_children()):
             if isinstance(child, TPConv2d):
-                conv = nn.Conv2d(child.in_channels, child.out_channels, child.kernel_size,
-                                 child.stride, child.padding, child.dilation,
-                                 bias=child.bias is not None,
-                                 device=child.weight.device)
+                conv = Conv2d(child.in_channels, child.out_channels, child.kernel_size,
+                              child.stride, child.padding, child.dilation,
+                              bias=child.bias is not None, device=child.weight.device,
+                              compute_dtype=child.compute_dtype)
                 with torch.no_grad():
                     conv.weight.copy_(gather(child.weight))
                     if child.bias is not None:

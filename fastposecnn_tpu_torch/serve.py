@@ -13,6 +13,13 @@ architecture fields (`ENCODER`, the classes, ...), which win.
 `models.weights.from_jax_params`) or the path of any checkpoint
 `train.checkpoint.load_weights` reads: a JAX npz snapshot, a reference
 torch checkpoint or a full checkpoint of the port's trainer.
+
+`compute_dtype` is the served network's: "float32" (the default, as the
+JAX package's `__graft_entry__.entry()` and inference CLI serve, whatever
+the preset's `COMPUTE_DTYPE` says) or "bfloat16", the counterpart of the
+network `bench.py` serves on its chip (`bench.py:65-68`), through the rule
+of `device.compute_dtype` (bfloat16 on CUDA only). The logits are float32
+either way, and so is everything after the network.
 """
 
 from __future__ import annotations
@@ -26,7 +33,12 @@ import torch
 
 from fastposecnn_tpu_torch import config as C
 from fastposecnn_tpu_torch import constants
-from fastposecnn_tpu_torch.device import DeviceLike, full_float32, resolve_device
+from fastposecnn_tpu_torch.device import (
+    DeviceLike,
+    compute_dtype as dtype_rule,
+    full_float32,
+    resolve_device,
+)
 from fastposecnn_tpu_torch.models import PoseRegressorNet
 from fastposecnn_tpu_torch.models.weights import init_random_
 from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
@@ -39,14 +51,17 @@ class InferenceServer:
     """Holds the network, the pipeline config and inv(K) on the device."""
 
     def __init__(self, weights: Optional[Union[str, os.PathLike, Mapping]] = None,
-                 device: DeviceLike = None, seed: int = 0, **overrides):
+                 device: DeviceLike = None, seed: int = 0, compute_dtype: str = "float32",
+                 **overrides):
         self.device = resolve_device(device)
         hp = dataclasses.replace(C.inference(), **overrides)
         from_file = isinstance(weights, (str, os.PathLike))
         if from_file:
             hp = merge_arch_from_any(weights, hp)
         self.hp = hp
-        net = PoseRegressorNet(num_classes=hp.num_classes, encoder_name=hp.ENCODER)
+        net = PoseRegressorNet(num_classes=hp.num_classes, encoder_name=hp.ENCODER,
+                               dtype=dtype_rule(dataclasses.replace(
+                                   hp, COMPUTE_DTYPE=compute_dtype), self.device))
         if weights is None:
             init_random_(net, seed)
         elif from_file:
@@ -82,7 +97,8 @@ class InferenceServer:
     def __call__(self, image: torch.Tensor, draws: Optional[VoteDraws] = None):
         """image [B, 3, H, W] float32 -> (mask [B, H, W] int32,
         class_ids [B, K] int32, xy [B, K, 2], z [B, K], RT [B, K, 4, 4]),
-        computed in full float32. The vote's random draws are `draws` (a
+        computed in full float32 after a network in the server's compute
+        dtype. The vote's random draws are `draws` (a
         `VoteDraws`, as an exported program fixes them) or come from the
         server's generators. The CC kernel's error flag is read once, after
         every stage is enqueued, and raises if set."""

@@ -10,8 +10,12 @@ and the plateau scale, validates (the pose metric bank, and the validation
 loss weighted by real samples), steps the plateau schedule into the
 optimizer, and checkpoints: `best` on the validation loss, `periodic` every
 `CKPT_SAVE_FREQUENCY` epochs, `last` at the end (`train.checkpoint`). The
-train and eval steps compute in `device.full_float32()`; `COMPUTE_DTYPE` is
-not honoured (the JAX loop takes bfloat16 only on a TPU).
+network computes in `device.compute_dtype(hp, device)`, as the JAX loop
+builds it (`train/loop.py:192-197`): bfloat16 when `COMPUTE_DTYPE` is
+"bfloat16" (the default) on CUDA, float32 on the CPU or for any other
+value; its parameters, statistics and optimizer state are float32 either
+way, and run.log names the dtype. The train and eval steps run in
+`device.full_float32()` (the float32 parts with TF32 off).
 
 Data and tensor parallel (`parallel.mesh`): inside a process group each
 rank passes its rows of every padded global batch (the loaders are
@@ -55,7 +59,7 @@ import torch
 from fastposecnn_tpu_torch import metrics as M
 from fastposecnn_tpu_torch.config import HParams, pipeline_config_from
 from fastposecnn_tpu_torch.data.loader import empty_batch, pad_batch
-from fastposecnn_tpu_torch.device import resolve_device
+from fastposecnn_tpu_torch.device import compute_dtype, resolve_device
 from fastposecnn_tpu_torch.models import network_from_hparams
 from fastposecnn_tpu_torch.models.weights import init_random_
 from fastposecnn_tpu_torch.parallel import mesh
@@ -119,6 +123,15 @@ def _quiet_logger():
     handler = logging.NullHandler()
     flog.addHandler(handler)
     return flog, handler
+
+
+def initial_network(hp: HParams, device: torch.device, flog) -> torch.nn.Module:
+    """The network of `hp` in `compute_dtype(hp, device)` (named in
+    run.log), with the seeded initial weights, on `device`."""
+    dtype = compute_dtype(hp, device)
+    flog.info("network compute dtype: %s (COMPUTE_DTYPE=%s on %s)",
+              str(dtype).removeprefix("torch."), hp.COMPUTE_DTYPE, device.type)
+    return init_random_(network_from_hparams(hp, dtype), INIT_SEED).to(device)
 
 
 def _rank_batch(batch, hp: HParams, device):
@@ -248,8 +261,7 @@ def fit(hp: HParams, train_loader, valid_loader, inv_intrinsics,
                       mesh.backend(), hp.BATCH_SIZE // ranks)
         if layout.tp > 1:
             flog.info("tensor-parallel: mesh %s (%s)", layout.shape, mesh.backend())
-        net = network_from_hparams(hp)
-        net = init_random_(net, INIT_SEED).to(device)
+        net = initial_network(hp, device, flog)
         pcfg = pipeline_config_from(hp)
         optimizer = make_optimizer(hp, net)
         state = create_train_state(net, optimizer)

@@ -66,15 +66,13 @@ from fastposecnn_tpu_torch.data.loader import (
 )
 from fastposecnn_tpu_torch.data.nocs import collate
 from fastposecnn_tpu_torch.device import resolve_device
-from fastposecnn_tpu_torch.models import network_from_hparams
-from fastposecnn_tpu_torch.models.weights import init_random_
 from fastposecnn_tpu_torch.train import checkpoint as ckpt
 from fastposecnn_tpu_torch.train import optim
 from fastposecnn_tpu_torch.train.loop import (
-    INIT_SEED,
     TRAIN_SEED,
     _file_logger,
     fetch_logs,
+    initial_network,
     make_run_dir,
 )
 from fastposecnn_tpu_torch.train.task import (
@@ -325,8 +323,7 @@ def fit_staged(hp: HParams, train_ds, valid_ds, inv_intrinsics,
     try:
         flog.info("hparams: %s", hp.to_json().replace("\n", " "))
         flog.info("staged (device-resident) trainer")
-        net = network_from_hparams(hp)
-        net = init_random_(net, INIT_SEED).to(device)
+        net = initial_network(hp, device, flog)
         pcfg = pipeline_config_from(hp)
         optimizer = make_optimizer(hp, net)
         state = create_train_state(net, optimizer)

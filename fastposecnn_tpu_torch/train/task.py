@@ -33,9 +33,12 @@ world, so every rank skips the same steps.
 
 The step reads two values on the host at its end: whether the gradients
 were finite (to skip or apply the update) and, under HEAD_TRAINING on a
-CUDA device, the CC kernel's error flag. On CUDA it runs in
-`device.full_float32()`; the JAX trainer's bfloat16 compute (a TPU option)
-is not ported.
+CUDA device, the CC kernel's error flag. The step takes the network as
+built, in its compute dtype (`device.compute_dtype`: a bfloat16 network on
+CUDA under the default `COMPUTE_DTYPE`, as the JAX trainer builds it on a
+TPU); the network returns float32 logits, so the losses, the pipeline's
+stages and the optimizer (float32 parameters and moments) are float32
+either way. On CUDA the step runs in `device.full_float32()`.
 """
 
 from __future__ import annotations

@@ -3,6 +3,8 @@ custom ops against the JAX package's export (`jax.export` to StableHLO):
 counterparts of `tests/test_export.py`'s two tests, on the CPU.
 
 - The loaded network equals eager at atol 1e-5.
+- A bf16 network's served pipeline exports with its casts in the graph, and
+  the loaded program equals eager bit for bit.
 - The loaded pipeline at the JAX test's config (32x32, 3 classes, 4 slots,
   64 points, 16 hypotheses, adaptive: the vote loop is one `while_loop` in
   the program) equals eager at the golden tolerance (atol 2e-4, rtol 1e-4)
@@ -71,6 +73,36 @@ def test_network_roundtrip(tmp_path):
     for k in ref:
         np.testing.assert_allclose(out[k].numpy(), ref[k].numpy(), atol=1e-5, err_msg=k)
 
+
+
+def test_bf16_served_pipeline_export(tmp_path):
+    """A bf16 network's served pipeline (single-shot voting, draws from a
+    seed): its casts are in the graph, and the loaded program answers bit
+    for bit as eager does."""
+    x = np.random.default_rng(2).normal(size=(1, 32, 32, 3)).astype(np.float32)
+    _, v, _ = nets(x)
+    net = PoseRegressorNet(num_classes=3, dtype=torch.bfloat16)
+    net.load_state_dict(from_jax_params(jax.tree.map(np.asarray, v)))
+    net.eval()
+    pcfg = PipelineConfig(max_instances=4, max_points=64, hv_num_hypotheses=16,
+                          hv_adaptive=False)
+    path = export_forward(net, tmp_path / "bf16.pt2", image_shape=(1, 3, 32, 32),
+                          pipeline_config=pcfg, inv_intrinsics=INV_K, seed=5)
+    program = torch.export.load(str(path))
+    casts = [n for n in program.graph.nodes
+             if n.op == "call_function" and "to" in str(n.target)
+             and torch.bfloat16 in (list(n.args) + list(n.kwargs.values()))]
+    assert casts, "no bf16 cast in the exported graph"
+    draws = make_draws(pcfg, 1, 5, "cpu")
+    with torch.no_grad(), full_float32():
+        logits = net(nchw(x))
+        out = run_pipeline(logits, pcfg, torch.tensor(INV_K, dtype=torch.float32), draws=draws)
+    assert all(t.dtype == torch.float32 for t in logits.values())
+    agg = out["aggregated"]
+    got = load_exported(path)(nchw(x))
+    for g, e, name in zip(got, (out["categorical"]["mask"], agg["class_ids"], agg["xy"],
+                                agg["z"], agg["RT"]), ("mask", "class_ids", "xy", "z", "RT")):
+        assert torch.equal(g, e), name
 
 def test_full_pipeline_export(tmp_path):
     """Adaptive, as the JAX test's config; JAX's program runs its plain

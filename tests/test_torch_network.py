@@ -97,3 +97,32 @@ def test_seeded_random_weights():
     assert not torch.equal(a["encoder.conv1.weight"], c["encoder.conv1.weight"])
     with pytest.raises(ValueError):
         PoseRegressorNet(3)(torch.zeros(1, 3, 48, 64))
+
+
+@pytest.mark.parametrize("shape,scale", [((2, 3, 5, 7), 2), ((1, 4, 16, 12), 4), ((2, 2, 1, 3), 2)])
+def test_upsample_bilinear_float32_backward(shape, scale):
+    """A float32 map's bilinear upsample: `F.interpolate` forward (bit for
+    bit, with or without a gradient), the backward the adjoint of JAX's
+    interpolation matrices (gradcheck in float64, its fast mode: one
+    random projection; JAX's own vjp of its upsample in float32, to
+    float32 rounding)."""
+    from fastposecnn_tpu.models import fpn as jfpn
+    from fastposecnn_tpu_torch.models import fpn
+
+    rng = np.random.default_rng(sum(shape) + scale)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(*shape[:2], shape[2] * scale, shape[3] * scale))
+                         .astype(np.float32))
+    plain = torch.nn.functional.interpolate(x, scale_factor=scale, mode="bilinear",
+                                            align_corners=True)
+    xg = x.clone().requires_grad_(True)
+    y = fpn.upsample_bilinear(xg, scale)
+    assert torch.equal(y.detach(), plain) and torch.equal(fpn.upsample_bilinear(x, scale), plain)
+    (got,) = torch.autograd.grad(y, xg, g)
+    _, vjp = jax.vjp(lambda a: jfpn.upsample_bilinear(a, scale),
+                     jnp.asarray(x.numpy().transpose(0, 2, 3, 1)))
+    want = np.asarray(vjp(jnp.asarray(g.numpy().transpose(0, 2, 3, 1)))[0]).transpose(0, 3, 1, 2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * float(np.abs(want).max()))
+    x64 = x.double().requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda t: fpn.upsample_bilinear(t, scale), (x64,),
+                                    fast_mode=True)

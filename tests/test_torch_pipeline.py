@@ -118,7 +118,9 @@ def test_port_sources_import_no_jax():
                    "cli/create_meta.py", "utils/export.py", "utils/draw.py",
                    "utils/visualize.py", "utils/report.py", "utils/optional.py",
                    "parallel/tp.py", "parallel/__init__.py", "ops/voting.py",
-                   "cli/evaluate.py", "metrics.py"):
+                   "cli/evaluate.py", "metrics.py", "models/conv.py", "models/fpn.py",
+                   "models/pose_regressor.py", "device.py", "serve.py", "config.py",
+                   "probes/upsample_paths.py"):
         assert REPO / "fastposecnn_tpu_torch" / module in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -153,7 +155,9 @@ assert 'fastposecnn_tpu_torch.losses' in sys.modules
 for name in ('train.checkpoint', 'train.loop', 'cli.train', 'data.augment',
              'native.augment_lib', 'utils.tb', 'data.png', 'data.nocs_writer',
              'data.bank_pool', 'train.staged', 'ops.voting_soft', 'ops.voting_vp',
-             'models.resnet'):
+             'models.resnet', 'models.conv', 'models.fpn', 'models.pose_regressor',
+             'device', 'serve', 'config', 'parallel.tp', 'utils.export',
+             'probes.upsample_paths'):
     assert 'fastposecnn_tpu_torch.' + name in sys.modules, name
 print('ok')
 """

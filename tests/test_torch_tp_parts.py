@@ -21,7 +21,9 @@ each), against one process and against the JAX package's layouts:
   order are the global batch, a short rank raises on every rank; in one
   process it equals `shard_batch` (`tests/test_train.py:295-311`);
 - `dryrun_multichip(4)` runs over (dp 2, tp 2) and reports its
-  tp-sharded tensors.
+  tp-sharded tensors;
+- `device.full_float32()` takes cuDNN's deterministic heuristics in a tp
+  group and its timed algorithms over dp ranks alone.
 """
 
 import dataclasses
@@ -34,6 +36,7 @@ import torch_dp_ranks as R
 from fastposecnn_tpu_torch import config as TC
 from fastposecnn_tpu_torch.models import PoseRegressorNet
 from fastposecnn_tpu_torch.models.weights import init_random_
+from fastposecnn_tpu_torch.device import body_deterministic, tp_flags
 from fastposecnn_tpu_torch.parallel import dryrun, mesh
 from fastposecnn_tpu_torch.train import checkpoint as ckpt
 from fastposecnn_tpu_torch.train import optim as TO
@@ -203,6 +206,20 @@ def test_shard_batch_multihost_assembles_the_global_batch():
         np.testing.assert_array_equal(np.concatenate([got[key] for got, _ in ranks]),
                                       batch[key])
     assert all("other sizes: [[3, 3], [1, 1]]" in error for _, error in ranks)
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_full_float32_in_a_tp_group_takes_deterministic_heuristics(tp):
+    # The ranks of a tp group compute the replicated parts of the network
+    # alike only if cuDNN gives them the same algorithms: its heuristics'
+    # deterministic ones, not each rank's own timing. Data-parallel ranks
+    # keep the timed algorithms (their all-reduced updates are equal anyway).
+    ranks = mesh.launch(R.float32_flags, 2, (), backend="gloo", threads=1, deadline_s=60.0,
+                        layout=mesh.make_mesh(2, tp=tp))
+    for before, inside, after in ranks:
+        timed = (True, body_deterministic(before[0], before[3]))
+        assert inside == (False, False, *(tp_flags() if tp == 2 else timed))
+        assert tp_flags() == (False, True) and after == before
 
 
 def test_dryrun_multichip_over_dp_and_tp(capsys):

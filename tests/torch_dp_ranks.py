@@ -313,3 +313,42 @@ def multihost(global_batch):
     except ValueError as e:
         error = str(e)
     return got, error
+
+
+def float32_flags():
+    """(cuDNN TF32, matmul TF32, cuDNN benchmark, cuDNN deterministic) on this
+    rank before `device.full_float32()`, inside it and after it."""
+    from fastposecnn_tpu_torch.device import full_float32
+
+    def flags():
+        b = torch.backends
+        return (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.benchmark,
+                b.cudnn.deterministic)
+
+    before = flags()
+    with full_float32():
+        inside = flags()
+    return before, inside, flags()
+
+
+def tp_conv_bf16(conv):
+    """`tp_conv` with the convolution in bf16 (`models.conv.Conv2d`), on the
+    CPU: the output (bf16, as float32), the gradients, and the output's
+    dtype."""
+    from fastposecnn_tpu_torch.models.conv import Conv2d
+    from fastposecnn_tpu_torch.parallel import tp
+
+    weight, bias, x, cot, stride, padding = conv
+    full = Conv2d(weight.shape[1], weight.shape[0], weight.shape[2:], stride=stride,
+                  padding=padding, bias=bias is not None, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        full.weight.copy_(torch.from_numpy(weight))
+        if bias is not None:
+            full.bias.copy_(torch.from_numpy(bias))
+    m = tp.TPConv2d(full, mesh.tp_size(), mesh.tp_rank())
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = m(xt)
+    (y.float() * torch.from_numpy(cot)).sum().backward()
+    return dict(coords=(mesh.dp_rank(), mesh.tp_rank()), y=np_(y.float()), dx=np_(xt.grad),
+                dw=np_(tp.gather(m.weight.grad)), db=None if bias is None else np_(m.bias.grad),
+                local=tuple(m.weight.shape), dtype=str(y.dtype))
