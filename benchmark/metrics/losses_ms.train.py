@@ -1,0 +1,12 @@
+"""ms a train step of the program's `losses` spans (CUDA event pairs) in its
+last traced window (the profiled one), over its `step` spans."""
+
+
+def read(record):
+    try:
+        from fastposecnn_tpu_torch.utils.timer import last_window
+    except ImportError:  # a program without the tracer
+        return None
+    window = last_window()
+    units = window.units("step") if window is not None else 0
+    return window.total_ms("losses") / units if units else None

@@ -59,11 +59,13 @@ from fastposecnn_tpu_torch.device import full_float32, resolve_device
 from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
 from fastposecnn_tpu_torch.parallel import mesh
 from fastposecnn_tpu_torch.utils.report import save_aps
-from fastposecnn_tpu_torch.utils.timer import StageTimer
+from fastposecnn_tpu_torch.utils import timer
 
 APS_NUM_OF_POINTS = 50
-STAGES = ("model", "class_compress", "aggregation", "hough_voting",
-          "rt_calculation", "matching", "errors")
+# Phase A's stage report: {stage: the tracer's span it reads}.
+STAGES = {"model": "network", "class_compress": "class_compress",
+          "aggregation": "aggregate", "hough_voting": "vote",
+          "rt_calculation": "rt", "matching": "matching", "errors": "errors"}
 METRICS = ("3d_iou", "degree_error", "degree_error_geodesic", "offset_error")
 
 
@@ -87,7 +89,6 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
                        draws_for: Optional[Callable[[int], object]] = None,
                        generator: Optional[torch.Generator] = None,
                        cpu_generator: Optional[torch.Generator] = None,
-                       timers: Optional[Dict[str, StageTimer]] = None,
                        draw: int = 0, draw_dir=None):
     """Phase A: forward, match and per-class raw errors over `batches`
     (collated numpy batches, None for an all-rejected one).
@@ -105,12 +106,12 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
     (`save_comparison_figure`; this rank's first image). Returns (raw errors
     {metric: {class: float64 array}}, stats {frames, batches, vote_rounds
     per batch, seconds, and the first batch's frames and seconds, which
-    include cuDNN timing its algorithms for the batch's shape})."""
+    include cuDNN timing its algorithms for the batch's shape}). Each stage
+    is a span of the tracer (`STAGES`), which a caller's
+    `timer.tracing()` window keeps."""
     from fastposecnn_tpu_torch.data.loader import empty_batch, pad_batch, upcast_batch
     from fastposecnn_tpu_torch.ops.matching import gather_matched, match_instances
 
-    if timers is None:
-        timers = {name: StageTimer(name, device) for name in STAGES}
     num_classes = hp.num_classes
     raw = {m: {c: [] for c in range(1, num_classes)} for m in METRICS}
     stats = {"frames": 0, "batches": 0, "vote_rounds": []}
@@ -125,25 +126,20 @@ def collect_raw_errors(hp, batches, net, pcfg, inv_K: torch.Tensor,
         db = upcast_batch(batch, device)
         draws = draws_for(bi) if draws_for is not None else None
         with torch.inference_mode(), full_float32():
-            with timers["model"].measure():
+            with timer.span("network"):
                 logits = net(db["image"])
-            with timers["class_compress"].measure():
-                cat = P.stage_class_compress(logits)
-            with timers["aggregation"].measure():
-                agg = P.stage_aggregate(cat, pcfg)
-            with timers["hough_voting"].measure():
-                agg = P.stage_hough_voting(agg, pcfg, draws, generator,
-                                           cpu_generator)
-            with timers["rt_calculation"].measure():
-                agg = P.stage_rt_calculation(agg, inv_K)
-            with timers["matching"].measure():
+            cat = P.stage_class_compress(logits)
+            agg = P.stage_aggregate(cat, pcfg)
+            agg = P.stage_hough_voting(agg, pcfg, draws, generator, cpu_generator)
+            agg = P.stage_rt_calculation(agg, inv_K)
+            with timer.span("matching"):
                 match = match_instances(agg, db["agg"])
                 matched = gather_matched(
                     agg, db["agg"], match,
                     keys=("quaternion", "scales", "z", "xy", "T", "R", "RT"))
         if draw_dir is not None and bi < draw:
             save_comparison_figure(hp, batch, matched, cat, agg, bi, draw_dir)
-        with timers["errors"].measure():
+        with timer.span("errors"):
             m = {k: v.cpu().numpy() for k, v in matched.items()}
             real = np.arange(len(m["valid"])) < n_real
             # After the readback above, which waited for the batch.
@@ -390,19 +386,17 @@ def phase_a(hp, args, device):
     mesh.shard_network_tp(net)  # every rank built the same weights
     pcfg = C.pipeline_config_from(hp)
     pcfg.check_ported()
-    timers = {name: StageTimer(name, device) for name in STAGES}
-    raw, stats = collect_raw_errors(
-        hp, iterate_batches(source, hp.BATCH_SIZE, shard=(mesh.dp_rank(), mesh.dp_size())),
-        net, pcfg, inverse_intrinsics(hp, device), device,
-        fpc_compat_iou=args.fpc_compat_iou,
-        generator=torch.Generator(device).manual_seed(args.vote_seed),
-        cpu_generator=torch.Generator().manual_seed(args.vote_seed),
-        timers=timers, draw=args.draw, draw_dir=args.output if mesh.rank() == 0 else None)
-    for t in timers.values():
-        t.flush()
-    stats.update(scene_seconds=scene_seconds,
-                 stage_ms={k: t.average for k, t in timers.items()},
-                 stage_report="\n".join(t.report() for t in timers.values() if t.times_ms))
+    with timer.tracing() as window:
+        raw, stats = collect_raw_errors(
+            hp, iterate_batches(source, hp.BATCH_SIZE, shard=(mesh.dp_rank(), mesh.dp_size())),
+            net, pcfg, inverse_intrinsics(hp, device), device,
+            fpc_compat_iou=args.fpc_compat_iou,
+            generator=torch.Generator(device).manual_seed(args.vote_seed),
+            cpu_generator=torch.Generator().manual_seed(args.vote_seed),
+            draw=args.draw, draw_dir=args.output if mesh.rank() == 0 else None)
+    stage_ms = timer.stage_ms(window, STAGES)
+    stats.update(scene_seconds=scene_seconds, stage_ms=stage_ms,
+                 stage_report=timer.report_runtime(stage_ms))
     return raw, stats
 
 

@@ -7,12 +7,14 @@ JAX package's `cli/inference.py`), on CUDA unless `--device cpu` is given.
         [--CHECKPOINT weights.npz|ref.ckpt|checkpoints/best] [--device cpu]
 
 `forward` times the network and every post-network stage of one frame
-(the INFERENCE preset's single 4096-hypothesis vote); `--stage_timing` runs
-the frame a second time stage by stage, each stage fed the previous one's
-output, and times `model`, `class_compress`, `aggregation`,
-`hough_voting` and `rt_calculation` alone, all in full float32 (TF32
-off). On CUDA the timers are CUDA events, read after each frame, and
-the CC kernel's error flags are read after them.
+(the INFERENCE preset's single 4096-hypothesis vote) and the host's read
+of the CC kernel's error flag; `--stage_timing` runs the frame a second
+time stage by stage, each stage fed the previous one's output, and times
+`model`, `class_compress`, `aggregation`, `hough_voting` and
+`rt_calculation` alone, all in full float32 (TF32 off). The loop runs with
+the port's tracer on (`utils.timer.tracing()`), and each timer reads the
+tracer's span of its stage (`TIMERS`); on CUDA a span's time is a CUDA
+event pair, read after the loop.
 
 `--output DIR` saves a summary figure of each of the first `--draw` frames
 (default 20) as DIR/<frame>.png: the image, the predicted and GT masks, the
@@ -22,6 +24,14 @@ matplotlib and cv2; without them the CLI raises before the first frame and
 names the package. `--trace DIR` records the loop with `torch.profiler`
 (the host and, on CUDA, the card's kernels) and writes a Chrome trace,
 DIR/trace.json; it needs no other package.
+
+The `--trace` file holds the tracer's spans as ranges, nested on the
+host's timeline: `fpc/frame` around each frame, `fpc/network` around the
+network, `fpc/stages` around the post-network stages with
+`fpc/class_compress`, `fpc/aggregate`, `fpc/vote` and `fpc/rt` inside,
+and `fpc/host_read/cc_flag` where the host reads the flag. The returned
+summary holds the tracer's counts a frame (`counts_per_frame`:
+`launch/<kernel>`, `host_read/<site>`, `vote_rounds`).
 """
 
 from __future__ import annotations
@@ -38,21 +48,23 @@ from fastposecnn_tpu_torch import pipeline as P
 from fastposecnn_tpu_torch.cli.evaluate import build_network, inverse_intrinsics, scene_source
 from fastposecnn_tpu_torch.device import full_float32, resolve_device
 from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
-from fastposecnn_tpu_torch.utils.timer import StageTimer, report_runtime
+from fastposecnn_tpu_torch.utils import timer
 
+# The reference's six timers: {key: (the tracer's span it reads, its label)}.
 TIMERS = {
-    "forward": "forward",
-    "model": "model",
-    "class_compress": "Class Compression",
-    "aggregation": "Aggregation",
-    "hough_voting": "Hough Voting",
-    "rt_calculation": "RT Calculation",
+    "forward": ("frame", "forward"),
+    "model": ("network", "model"),
+    "class_compress": ("class_compress", "Class Compression"),
+    "aggregation": ("aggregate", "Aggregation"),
+    "hough_voting": ("vote", "Hough Voting"),
+    "rt_calculation": ("rt", "RT Calculation"),
 }
 
 
 def main(argv=None) -> dict:
     """Run the loop; returns the frame count, {stage: average ms}, the
-    figures written and the trace's path (with `--trace`)."""
+    tracer's counts a frame, the figures written and the trace's path
+    (with `--trace`)."""
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--valid_dir", default=None, help="a NOCS folder on disk")
@@ -85,7 +97,6 @@ def main(argv=None) -> dict:
     inv_K = inverse_intrinsics(hp, device)
     gens = dict(generator=torch.Generator(device).manual_seed(0),
                 cpu_generator=torch.Generator().manual_seed(0))
-    timers = {k: StageTimer(name, device) for k, name in TIMERS.items()}
     out_dir = pathlib.Path(args.output) if args.output else None
     if out_dir and args.draw > 0:
         from fastposecnn_tpu_torch.utils.optional import need, pyplot
@@ -103,39 +114,35 @@ def main(argv=None) -> dict:
         profiler = profile(activities=activities)
 
     frames, figures = 0, []
-    with profiler as prof, torch.inference_mode(), full_float32():
+    with timer.tracing() as window, profiler as prof, torch.inference_mode(), full_float32():
         for batch in iterate_batches(source, 1):
             if batch is None:
                 continue
             batch = pad_batch(batch, 1)[0]
             db = upcast_batch(batch, device)
             image = db["image"]
-            with timers["forward"].measure():
-                out = P.run_pipeline(net(image), pcfg, inv_K, **gens)
-            flags = [out["aggregated"]["cc_error"]]
-            if args.stage_timing:
-                with timers["model"].measure():
+            with timer.span("frame"):
+                with timer.span("network"):
                     logits = net(image)
-                with timers["class_compress"].measure():
-                    cat = P.stage_class_compress(logits)
-                with timers["aggregation"].measure():
-                    agg = P.stage_aggregate(cat, pcfg)
-                flags.append(agg["cc_error"])
-                with timers["hough_voting"].measure():
-                    agg = P.stage_hough_voting(agg, pcfg, **gens)
-                with timers["rt_calculation"].measure():
-                    P.stage_rt_calculation(agg, inv_K)
-            for t in timers.values():
-                t.flush()
-            # The CC kernel's error flags, read after the frame's timers.
-            for err in flags:
-                raise_on_error_flag(err)
+                out = P.run_pipeline(logits, pcfg, inv_K, **gens)
+                raise_on_error_flag(out["aggregated"]["cc_error"])
+            if args.stage_timing:
+                with timer.span("network"):
+                    logits = net(image)
+                cat = P.stage_class_compress(logits)
+                agg = P.stage_aggregate(cat, pcfg)
+                agg = P.stage_hough_voting(agg, pcfg, **gens)
+                P.stage_rt_calculation(agg, inv_K)
+                raise_on_error_flag(agg["cc_error"])
             if out_dir and frames < args.draw:
                 figures.append(save_frame_figure(out, db, batch, hp, out_dir / f"{frames:04d}.png"))
             frames += 1
-    report_runtime(timers)
+    stage_ms = timer.stage_ms(window, {k: span for k, (span, _) in TIMERS.items()})
+    print(timer.report_runtime({TIMERS[k][1]: ms for k, ms in stage_ms.items()}))
     summary = {"frames": frames, "device": str(device), "figures": figures,
-               "stage_ms": {k: t.average for k, t in timers.items() if t.times_ms}}
+               "stage_ms": stage_ms,
+               "counts_per_frame": {k: v / max(frames, 1)
+                                    for k, v in sorted(window.counts.items())}}
     if args.trace:
         trace_dir = pathlib.Path(args.trace)
         trace_dir.mkdir(parents=True, exist_ok=True)

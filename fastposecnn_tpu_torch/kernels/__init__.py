@@ -1,12 +1,13 @@
 """Hand-written CUDA kernels for Hopper and their launch counters.
 
-Each wrapper adds one to its counter where it launches its kernel, and
-nowhere else, so a run can show that its main path went through the
-kernels. The wrappers live beside their plain PyTorch versions, in
-`ops/connected_components.py` (cc_label), `ops/voting.py` (vote_count) and
-`probes/vote_variants.py` (vote_expanded_mm and vote_expanded_bcast, the
-probe of K2's formulation, on no main path). cc_label and vote_count are
-also the CUDA implementations of the custom ops `fastposecnn::cc_label` and
+Each wrapper adds one to its counter, the tracer's `launch/<kernel>`
+(`utils.timer`), where it launches its kernel, and nowhere else, so a run
+can show that its main path went through the kernels. The wrappers live
+beside their plain PyTorch versions, in `ops/connected_components.py`
+(cc_label), `ops/voting.py` (vote_count) and `probes/vote_variants.py`
+(vote_expanded_mm and vote_expanded_bcast, the probe of K2's formulation,
+on no main path). cc_label and vote_count are also the CUDA
+implementations of the custom ops `fastposecnn::cc_label` and
 `fastposecnn::vote_count`, so a loaded exported program counts its
 launches too.
 """
@@ -15,18 +16,22 @@ from __future__ import annotations
 
 from typing import Dict
 
+from fastposecnn_tpu_torch.utils import timer
+
 KERNELS = ("cc_label", "vote_count", "vote_expanded_mm", "vote_expanded_bcast")
-_launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    if name not in KERNELS:
+        raise KeyError(name)
+    timer.count("launch/" + name)
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(_launches)
+    """Each kernel's launches since the last reset."""
+    totals = timer.totals()
+    return {k: totals.get("launch/" + k, 0) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    timer.reset_totals("launch/")

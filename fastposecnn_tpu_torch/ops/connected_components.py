@@ -29,6 +29,7 @@ import torch
 
 from fastposecnn_tpu_torch.kernels import count_launch
 from fastposecnn_tpu_torch.kernels.build import check, load_library
+from fastposecnn_tpu_torch.utils import timer
 
 _BIG = 2**31 - 1
 
@@ -73,9 +74,10 @@ def new_error_flag(like: torch.Tensor) -> Optional[torch.Tensor]:
 
 
 def raise_on_error_flag(err: Optional[torch.Tensor]) -> None:
-    """Read the kernel's error flag (waits for the device) and raise if it
-    is set; None, from the CPU, passes."""
-    if err is not None and int(err.item()) != 0:
+    """Read the kernel's error flag (waits for the device; the tracer's
+    host read `cc_flag`) and raise if it is set; None, from the CPU,
+    passes."""
+    if err is not None and timer.host_read("cc_flag", err.item) != 0:
         raise RuntimeError("cc_label: a device loop passed its step bound")
 
 

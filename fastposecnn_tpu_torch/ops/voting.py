@@ -10,9 +10,9 @@ Random draws are injected: `torch` cannot reproduce `jax.random` streams, so
 generators.
 
 The adaptive loop runs on the host: before each round it reads one flag
-from the device (all active slots confident), so a batch costs at most
-`max_iter` + 1 host syncs. Traced by `torch.export`, it is one
-`while_loop` higher-order op instead.
+from the device (all active slots confident; the tracer's host read
+`vote_confident`), so a batch costs at most `max_iter` + 1 host syncs.
+Traced by `torch.export`, it is one `while_loop` higher-order op instead.
 
 Voting passes no gradient, as in the JAX package (`ops/voting.py:529-535`,
 :573, :660-661): the sampled points and directions, the refinements' inlier
@@ -32,6 +32,7 @@ import torch
 from fastposecnn_tpu_torch.kernels import count_launch
 from fastposecnn_tpu_torch.kernels.build import check, load_library
 from fastposecnn_tpu_torch.parallel import mesh
+from fastposecnn_tpu_torch.utils import timer
 
 _DEGENERATE_EPS = 1e-6
 # Slots with fewer foreground pixels than this get a (0, 0) centre
@@ -534,15 +535,17 @@ def ransac_vote_centers_adaptive(
             cond, body, (rounds, best_pts, best_ratio, last_hyps))
     else:
         rounds = 0
-        while rounds < max_iter and not mesh.all_ranks_true(confident(best_ratio, rounds)):
-            if pairs is not None:
-                idx = pairs[rounds].to(device=pts.device, dtype=torch.int64)
-            else:
-                idx = mesh.rank_rows(torch.randint(
-                    0, p, (m * mesh.dp_size(), round_hyp_num, 2),
-                    generator=generator, device=pts.device))
-            last_hyps, best_pts, best_ratio = _vote_round(*fixed, idx, inlier_thresh, impl,
-                                                          best_pts, best_ratio)
+        while rounds < max_iter and not timer.host_read(
+                "vote_confident", mesh.all_ranks_true, confident(best_ratio, rounds)):
+            with timer.span("vote_round"):
+                if pairs is not None:
+                    idx = pairs[rounds].to(device=pts.device, dtype=torch.int64)
+                else:
+                    idx = mesh.rank_rows(torch.randint(
+                        0, p, (m * mesh.dp_size(), round_hyp_num, 2),
+                        generator=generator, device=pts.device))
+                last_hyps, best_pts, best_ratio = _vote_round(
+                    *fixed, idx, inlier_thresh, impl, best_pts, best_ratio)
             rounds += 1
 
     if refine == "sampled":
@@ -624,4 +627,6 @@ def hough_vote(agg: dict, max_points: int = 1024, round_hyp_num: int = 128,
     out["hypothesis"] = hyps.reshape(b, n, round_hyp_num, 2)
     out["pruned_hypothesis"] = out["hypothesis"]
     out["vote_rounds"] = rounds
+    if isinstance(rounds, int):  # a traced loop's rounds stay on the device
+        timer.count("vote_rounds", rounds)
     return out

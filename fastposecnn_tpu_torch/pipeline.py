@@ -25,6 +25,7 @@ from fastposecnn_tpu_torch.ops.aggregation import aggregate_instances
 from fastposecnn_tpu_torch.ops.class_compress import class_compress
 from fastposecnn_tpu_torch.ops.voting import VoteDraws, hough_vote
 from fastposecnn_tpu_torch.ops.voting_soft import soft_hough_vote
+from fastposecnn_tpu_torch.utils import timer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,47 +67,51 @@ class PipelineConfig:
 
 
 def stage_class_compress(logits: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    return class_compress(logits)
+    with timer.span("class_compress"):
+        return class_compress(logits)
 
 
 def stage_aggregate(categorical: Dict[str, Any],
                     config: PipelineConfig) -> Dict[str, Any]:
-    return aggregate_instances(categorical, config.max_instances,
-                               impl=config.impl)
+    with timer.span("aggregate"):
+        return aggregate_instances(categorical, config.max_instances,
+                                   impl=config.impl)
 
 
 def stage_hough_voting(aggregated: Dict[str, Any], config: PipelineConfig,
                        draws: Optional[VoteDraws] = None,
                        generator: Optional[torch.Generator] = None,
                        cpu_generator: Optional[torch.Generator] = None):
-    if config.hv_implementation == "soft":
-        return soft_hough_vote(
+    with timer.span("vote"):
+        if config.hv_implementation == "soft":
+            return soft_hough_vote(
+                aggregated, max_points=config.max_points,
+                num_hypotheses=config.hv_num_hypotheses, draws=draws,
+                generator=generator, prun_method=config.prun_method,
+                prun_drop=config.prun_outlier_drop,
+                prun_replacement=config.prun_replacement,
+                zscore_threshold=config.prun_zscore_threshold,
+                iqr_multiplier=config.iqr_multiplier,
+                in_mask_multiplier=config.hv_in_mask_multiplier,
+            )
+        return hough_vote(
             aggregated, max_points=config.max_points,
-            num_hypotheses=config.hv_num_hypotheses, draws=draws,
-            generator=generator, prun_method=config.prun_method,
-            prun_drop=config.prun_outlier_drop,
-            prun_replacement=config.prun_replacement,
-            zscore_threshold=config.prun_zscore_threshold,
-            iqr_multiplier=config.iqr_multiplier,
-            in_mask_multiplier=config.hv_in_mask_multiplier,
+            round_hyp_num=config.hv_num_hypotheses,
+            inlier_thresh=config.hv_inlier_thresh, draws=draws,
+            generator=generator, cpu_generator=cpu_generator, impl=config.impl,
+            adaptive=config.hv_adaptive, confidence=config.hv_confidence,
+            max_iter=config.hv_max_iter, sampler=config.hv_sampler,
+            refine=config.hv_refine,
         )
-    return hough_vote(
-        aggregated, max_points=config.max_points,
-        round_hyp_num=config.hv_num_hypotheses,
-        inlier_thresh=config.hv_inlier_thresh, draws=draws,
-        generator=generator, cpu_generator=cpu_generator, impl=config.impl,
-        adaptive=config.hv_adaptive, confidence=config.hv_confidence,
-        max_iter=config.hv_max_iter, sampler=config.hv_sampler,
-        refine=config.hv_refine,
-    )
 
 
 def stage_rt_calculation(aggregated: Dict[str, Any],
                          inv_intrinsics: torch.Tensor) -> Dict[str, Any]:
-    R, T, RT = geometry.batch_get_RT(
-        aggregated["quaternion"], aggregated["xy"],
-        aggregated["z"][..., None], inv_intrinsics,
-    )
+    with timer.span("rt"):
+        R, T, RT = geometry.batch_get_RT(
+            aggregated["quaternion"], aggregated["xy"],
+            aggregated["z"][..., None], inv_intrinsics,
+        )
     return dict(aggregated, R=R, T=T, RT=RT)
 
 
@@ -120,16 +125,18 @@ def run_pipeline(logits: Dict[str, torch.Tensor], config: PipelineConfig,
     'aggregated'}; 'aggregated' is None when aggregation is off (the
     MASK_TRAINING preset), and otherwise carries the CC kernel's unread
     error flag as 'cc_error' (None on the CPU) for the caller to read once
-    at its end."""
+    at its end. The tracer's span `stages` covers the call, and each stage
+    has its own."""
     config.check_ported()
-    categorical = stage_class_compress(logits)
-    aggregated = None
-    if config.perform_aggregation:
-        aggregated = stage_aggregate(categorical, config)
-        if config.perform_hough_voting:
-            aggregated = stage_hough_voting(aggregated, config, draws,
-                                            generator, cpu_generator)
-            if config.perform_rt_calculation:
-                aggregated = stage_rt_calculation(aggregated, inv_intrinsics)
+    with timer.span("stages"):
+        categorical = stage_class_compress(logits)
+        aggregated = None
+        if config.perform_aggregation:
+            aggregated = stage_aggregate(categorical, config)
+            if config.perform_hough_voting:
+                aggregated = stage_hough_voting(aggregated, config, draws,
+                                                generator, cpu_generator)
+                if config.perform_rt_calculation:
+                    aggregated = stage_rt_calculation(aggregated, inv_intrinsics)
     return {"logits": logits, "categorical": categorical,
             "aggregated": aggregated}

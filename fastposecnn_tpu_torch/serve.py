@@ -45,6 +45,7 @@ from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
 from fastposecnn_tpu_torch.ops.voting import VoteDraws
 from fastposecnn_tpu_torch.pipeline import run_pipeline
 from fastposecnn_tpu_torch.train.checkpoint import load_weights, merge_arch_from_any
+from fastposecnn_tpu_torch.utils import timer
 
 
 class InferenceServer:
@@ -85,7 +86,8 @@ class InferenceServer:
         None on the CPU)."""
         image = image.to(self.device, torch.float32)
         with full_float32():
-            logits = self.net(image)
+            with timer.span("network"):
+                logits = self.net(image)
             out = run_pipeline(logits, self.config, self.inv_K, draws=draws,
                                generator=self.generator,
                                cpu_generator=self.cpu_generator)
@@ -101,7 +103,9 @@ class InferenceServer:
         dtype. The vote's random draws are `draws` (a
         `VoteDraws`, as an exported program fixes them) or come from the
         server's generators. The CC kernel's error flag is read once, after
-        every stage is enqueued, and raises if set."""
-        answer, cc_error = self.enqueue(image, draws)
-        raise_on_error_flag(cc_error)
+        every stage is enqueued, and raises if set. The tracer's span
+        `frame` covers the call."""
+        with timer.span("frame"):
+            answer, cc_error = self.enqueue(image, draws)
+            raise_on_error_flag(cc_error)
         return answer

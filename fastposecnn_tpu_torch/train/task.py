@@ -33,7 +33,10 @@ world, so every rank skips the same steps.
 
 The step reads two values on the host at its end: whether the gradients
 were finite (to skip or apply the update) and, under HEAD_TRAINING on a
-CUDA device, the CC kernel's error flag. The step takes the network as
+CUDA device, the CC kernel's error flag; the adaptive vote reads one flag
+a round. Each goes through the tracer's `host_read` (`utils.timer`), and
+the tracer's spans mark the step (`step`, `feed`, `network`, `losses`,
+`backward`, `optimizer`). The step takes the network as
 built, in its compute dtype (`device.compute_dtype`: a bfloat16 network on
 CUDA under the default `COMPUTE_DTYPE`, as the JAX trainer builds it on a
 TPU); the network returns float32 logits, so the losses, the pipeline's
@@ -62,6 +65,7 @@ from fastposecnn_tpu_torch.parallel import mesh
 from fastposecnn_tpu_torch.parallel.tp import is_sharded
 from fastposecnn_tpu_torch.pipeline import PipelineConfig, run_pipeline
 from fastposecnn_tpu_torch.train import optim as O
+from fastposecnn_tpu_torch.utils import timer
 
 MATCH_KEYS = ("quaternion", "scales", "z", "xy", "T", "R", "RT")
 
@@ -179,42 +183,49 @@ def make_train_step(net: torch.nn.Module, optimizer: O.Optimizer, hp,
     def train_step(state: TrainState, batch, seed: int = 0,
                    dropout_keep: Optional[Dict[str, torch.Tensor]] = None,
                    draws: Optional[VoteDraws] = None):
-        batch = upcast_batch(batch, device)
-        gen, cpu_gen = step_generators(device, seed, state.step)
-        net = state.net.train()
-        names, params = zip(*net.named_parameters())
-        with _precision(device):
-            if mesh.active():  # the global batch's masks, this rank's rows
-                keep = dropout_keep or net.draw_dropout_keep(
-                    batch["image"].shape[0] * mesh.dp_size(), device, gen)
-                dropout_keep = {k: mesh.rank_rows(v).to(device) for k, v in keep.items()}
-            net.zero_grad(set_to_none=True)
-            logits = net(batch["image"], dropout_keep=dropout_keep, generator=gen)
-            out = run_pipeline(logits, pcfg, inv_k, draws=draws, generator=gen,
-                               cpu_generator=cpu_gen)
-            total, logs, _ = compute_losses(out, batch, hp, perform_matching)
-            total.backward()
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            agg = out["aggregated"]
-            cc_error = agg["cc_error"] if agg is not None else None
-            finite = None
-            if mesh.active():
-                grads, finite, cc_error = _sum_grads_over_ranks(params, grads, cc_error)
-            if finite is None:
-                finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-            safe = [torch.nan_to_num(g) for g in grads]
-            logs["grad/global_norm"] = O.global_norm(safe, [is_sharded(p) for p in params])
-            logs["grad/finite"] = finite.float()
-            if agg is not None and "vote_rounds" in agg:
-                logs["pose/vote_rounds"] = torch.tensor(float(agg["vote_rounds"]))
-            opt_state, skipped = state.opt_state, state.skipped_updates
-            if bool(finite):  # one host read a step
-                updates, opt_state = optimizer.update(
-                    dict(zip(names, safe)), state.opt_state, dict(zip(names, params)))
-                O.apply_updates(dict(zip(names, params)), updates)
-            else:
-                skipped += 1
-        raise_on_error_flag(cc_error)
+        with timer.span("step"):
+            with timer.span("feed"):
+                batch = upcast_batch(batch, device)
+            gen, cpu_gen = step_generators(device, seed, state.step)
+            net = state.net.train()
+            names, params = zip(*net.named_parameters())
+            with _precision(device):
+                if mesh.active():  # the global batch's masks, this rank's rows
+                    keep = dropout_keep or net.draw_dropout_keep(
+                        batch["image"].shape[0] * mesh.dp_size(), device, gen)
+                    dropout_keep = {k: mesh.rank_rows(v).to(device) for k, v in keep.items()}
+                net.zero_grad(set_to_none=True)
+                with timer.span("network"):
+                    logits = net(batch["image"], dropout_keep=dropout_keep, generator=gen)
+                out = run_pipeline(logits, pcfg, inv_k, draws=draws, generator=gen,
+                                   cpu_generator=cpu_gen)
+                with timer.span("losses"):
+                    total, logs, _ = compute_losses(out, batch, hp, perform_matching)
+                with timer.span("backward"):
+                    total.backward()
+                agg = out["aggregated"]
+                cc_error = agg["cc_error"] if agg is not None else None
+                with timer.span("optimizer"):
+                    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+                    finite = None
+                    if mesh.active():
+                        grads, finite, cc_error = _sum_grads_over_ranks(params, grads, cc_error)
+                    if finite is None:
+                        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+                    safe = [torch.nan_to_num(g) for g in grads]
+                    logs["grad/global_norm"] = O.global_norm(safe,
+                                                             [is_sharded(p) for p in params])
+                    logs["grad/finite"] = finite.float()
+                    if agg is not None and "vote_rounds" in agg:
+                        logs["pose/vote_rounds"] = torch.tensor(float(agg["vote_rounds"]))
+                    opt_state, skipped = state.opt_state, state.skipped_updates
+                    if timer.host_read("finite", finite.item):  # one host read a step
+                        updates, opt_state = optimizer.update(
+                            dict(zip(names, safe)), state.opt_state, dict(zip(names, params)))
+                        O.apply_updates(dict(zip(names, params)), updates)
+                    else:
+                        skipped += 1
+            raise_on_error_flag(cc_error)
         logs = {k: v.detach() for k, v in logs.items()}
         return TrainState(net, opt_state, state.step + 1, skipped), logs
 

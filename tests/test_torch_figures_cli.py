@@ -1,5 +1,6 @@
 """The figure and trace flags of the port's CLIs on the CPU at 64x64: the
-inference CLI's `--output --draw 1 --trace`, the evaluate CLI's `--draw 1`
+inference CLI's `--output --draw 1 --trace` (with the tracer's `fpc/`
+ranges in the trace and its counts a frame), the evaluate CLI's `--draw 1`
 with phase B's AP plot and table, one epoch of the train CLI with its
 per-epoch visualisations and `RunLogger.log_image`. Files are checked to
 exist and figures for their shape; without matplotlib the flags are
@@ -35,6 +36,9 @@ def test_inference_cli_figures_and_trace(tmp_path):
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("fastposecnn::cc_label" in n for n in names)
     assert any("fastposecnn::vote_count" in n for n in names)
+    assert {"fpc/frame", "fpc/network", "fpc/stages", "fpc/class_compress",
+            "fpc/aggregate", "fpc/vote", "fpc/rt"} <= names
+    assert summary["counts_per_frame"] == {"vote_rounds": 1.0}  # no flag to read on the CPU
 
 
 def test_evaluate_cli_draw_plot_and_table(tmp_path):
