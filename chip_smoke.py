@@ -55,10 +55,13 @@ the requests with a bfloat16 network (`InferenceServer(compute_dtype=
 stage, its frames beside the float32 server's), trains with the bfloat16
 network the train loop builds on the card (MASK and HEAD steps beside
 float32 ones, a reduced-size step against the CPU's bf16 step, one epoch
-of the train CLI with the default COMPUTE_DTYPE), and
+of the train CLI with the default COMPUTE_DTYPE), holds K3 (the
+optimizer's two kernels) bit-equal to the foreach chain and its statistics
+to their plain version at resnet18's and resnet50's parameter sets, and
+counts the ops a train step dispatches in its optimizer span, and
 times the kernels at the served and the evaluated shapes (K1 beside its
 floor: its launches with empty kernels), their plain versions, the
-adaptive loop's host syncs, 30 served frames, and what a host sync right
+adaptive loop's host syncs, K3 and its plain chain, 30 served frames, and what a host sync right
 after K1 cost the frame, the train steps of each preset with the
 share of a HEAD_TRAINING step spent voting, the served frame of each
 encoder and of soft voting (with the share spent in its
@@ -115,6 +118,7 @@ H, W = 480, 640
 VOTE_FLOPS_PER_CELL = 11
 # The kernels the served frame and the evaluated batch run.
 PATH_KERNELS = ("cc_label", "vote_count")
+K3_KERNELS = ("optim_stats", "optim_update")
 # The held-out recipe (BASELINE.md:22-29) through the port on the CPU, in
 # float32: 261 matched instances, pooled geodesic mean in degrees
 # (`python -m fastposecnn_tpu_torch.cli.evaluate --device cpu` with the
@@ -1083,7 +1087,8 @@ def phase_probe(dev):
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     n = len(V.SHAPES)
-    want = {"cc_label": 0, "vote_count": n, "vote_expanded_mm": n, "vote_expanded_bcast": n}
+    want = {**{k: 0 for k in kernels.KERNELS}, "vote_count": n, "vote_expanded_mm": n,
+            "vote_expanded_bcast": n}
     if launches != want:
         raise AssertionError(f"probe launches {launches}, expected {want}")
     for ln in lines:
@@ -1236,11 +1241,12 @@ def phase_train(dev, smi):
     """The training path at full width (480x640, 7 classes, ResNet18 and four
     FPN decoders, batch 3, seeded random weights, in-memory synthetic
     scenes): 8 MASK_TRAINING steps at LEARNING_RATE 3e-3 (the loss falls,
-    the frozen heads stay bit-equal, the mask head moves, no kernel runs)
+    the frozen heads stay bit-equal, the mask head moves, neither K1 nor K2
+    runs, K3 once a step)
     and 6 HEAD_TRAINING steps with the preset's defaults (16 instance slots,
     1024 vote points, 128 hypotheses a round, adaptive): finite losses and
-    gradients, no skipped update, one Lookahead sync, K1 once a step and K2
-    once a RANSAC round. Times each step with CUDA events (the first step
+    gradients, no skipped update, one Lookahead sync, K1 and K3 once a step
+    and K2 once a RANSAC round. Times each step with CUDA events (the first step
     of each preset, with cuDNN's autotuning, is left out of the medians),
     the share of a HEAD step spent in hough voting, and from a profiler
     trace of 3 more steps the device's busy time a step (its kernels' sum),
@@ -1266,7 +1272,8 @@ def phase_train(dev, smi):
         raise AssertionError("a frozen module moved under MASK_TRAINING")
     if all(torch.equal(a, b) for a, b in zip(head0, net.segmentation_head.parameters())):
         raise AssertionError("the mask head did not move under MASK_TRAINING")
-    if any(mask_launches.values()) or mask["state"].skipped_updates:
+    if (any(mask_launches[k] for k in PATH_KERNELS) or mask["state"].skipped_updates
+            or (mask_launches["optim_stats"], mask_launches["optim_update"]) != (8, 8)):
         raise AssertionError(f"MASK_TRAINING launched {mask_launches} or skipped "
                              f"{mask['state'].skipped_updates} updates")
 
@@ -1283,7 +1290,8 @@ def phase_train(dev, smi):
         raise AssertionError(f"HEAD_TRAINING skipped {st.skipped_updates} updates")
     if (st.step, st.opt_state.count, st.opt_state.lookahead_step) != (6, 6, 6):
         raise AssertionError(f"HEAD_TRAINING state counts {st}")
-    if head_launches["cc_label"] != 6 or head_launches["vote_count"] != sum(rounds):
+    if (head_launches["cc_label"] != 6 or head_launches["vote_count"] != sum(rounds)
+            or (head_launches["optim_stats"], head_launches["optim_update"]) != (6, 6)):
         raise AssertionError(f"HEAD_TRAINING launches {head_launches}, rounds {rounds}")
     med_mask, med_head = statistics.median(mask_ms[1:]), statistics.median(head_ms[1:])
     share = [v / t for v, t in zip(vote_ms[1:], head_ms[1:])]
@@ -3737,9 +3745,10 @@ def phase_train_bf16(dev, smi):
     """Training with the network in bf16, built as `train/loop.py` builds it
     (`loop.initial_network`: the default COMPUTE_DTYPE on CUDA), at full
     width (480x640, 7 classes, batch 3, in-memory synthetic scenes): 8
-    MASK_TRAINING steps at LEARNING_RATE 3e-3 (the loss falls, no kernel
-    runs) and 6 HEAD_TRAINING steps (finite, no skipped update, K1 once a
-    step and K2 once a RANSAC round). Forward hooks check that every
+    MASK_TRAINING steps at LEARNING_RATE 3e-3 (the loss falls, K1 and K2
+    do not run) and 6 HEAD_TRAINING steps (finite, no skipped update, K1
+    once a step and K2 once a RANSAC round); K3a and K3b once each a step
+    in both. Forward hooks check that every
     convolution's output is bf16; every parameter, buffer and optimizer
     tensor stays float32. The same steps with the float32 network (the
     same weights and batches) in the same call: ms a step (medians after
@@ -3748,8 +3757,8 @@ def phase_train_bf16(dev, smi):
     K1 and K2 equals its plain version on the inputs it was given. Then
     `bf16_step_card_vs_cpu`, and one
     epoch of the train CLI with the default COMPUTE_DTYPE, whose run.log
-    must name bfloat16. Returns the kernels' launches of the HEAD steps and
-    the CLI run."""
+    must name bfloat16, with K3a and K3b once each a step. Returns the
+    launches of K1, K2 and K3 in the HEAD steps and the CLI run."""
     import logging
     import os
 
@@ -3790,7 +3799,8 @@ def phase_train_bf16(dev, smi):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         logs, ms16, _ = timed_steps(runs["bfloat16"], steps[preset_name])
-        counts = {k: kernels.launch_counts()[k] for k in PATH_KERNELS}
+        counts = {k: kernels.launch_counts()[k] for k in PATH_KERNELS + K3_KERNELS}
+        n_steps = steps[preset_name]
         for hook in hooks:
             hook.remove()
         if conv_dtypes != {"torch.bfloat16": len(convs) * steps[preset_name]}:
@@ -3808,11 +3818,14 @@ def phase_train_bf16(dev, smi):
             raise AssertionError(f"{preset_name}: {st.skipped_updates} skipped bf16 updates")
         losses = [lg["pose/total_loss"] for lg in logs]
         if preset_name == "mask_training":
-            if not losses[-1] < losses[0] or any(counts.values()):
+            if (not losses[-1] < losses[0]
+                    or counts != {"cc_label": 0, "vote_count": 0, "optim_stats": n_steps,
+                                  "optim_update": n_steps}):
                 raise AssertionError(f"bf16 MASK_TRAINING: losses {losses}, launches {counts}")
         else:
             rounds = [int(lg["pose/vote_rounds"]) for lg in logs]
-            if counts != {"cc_label": 6, "vote_count": sum(rounds)}:
+            if counts != {"cc_label": n_steps, "vote_count": sum(rounds),
+                          "optim_stats": n_steps, "optim_update": n_steps}:
                 raise AssertionError(f"bf16 HEAD_TRAINING launches {counts}, rounds {rounds}")
             launches = counts
             # One more step, outside the counted ones: each K1 and K2 call
@@ -3854,7 +3867,7 @@ def phase_train_bf16(dev, smi):
                  "--SELECTED_CLASSES", *C.HParams().SELECTED_CLASSES, "--NUM_WORKERS", "2",
                  "--epochs", "1", "--bank_pool_dir", f"{tmp}/banks", "--no_tb",
                  "--device", dev.type], compute_dtype=None)
-            cli_launches = {k: kernels.launch_counts()[k] for k in PATH_KERNELS}
+            cli_launches = {k: kernels.launch_counts()[k] for k in PATH_KERNELS + K3_KERNELS}
             log = (run_dir / "run.log").read_text()
         finally:
             if old_logs is None:
@@ -3863,14 +3876,242 @@ def phase_train_bf16(dev, smi):
                 os.environ["LOGS"] = old_logs
     if f"network compute dtype: bfloat16 (COMPUTE_DTYPE=bfloat16 on {dev.type})" not in log:
         raise AssertionError("the train CLI's run.log does not name bfloat16")
-    if state.net.dtype != torch.bfloat16 or state.skipped_updates or min(cli_launches.values()) < 1:
-        raise AssertionError(f"the bf16 train CLI: {state.net.dtype}, "
+    if (state.net.dtype != torch.bfloat16 or state.skipped_updates
+            or min(cli_launches.values()) < 1
+            or (cli_launches["optim_stats"], cli_launches["optim_update"])
+            != (state.step, state.step)):
+        raise AssertionError(f"the bf16 train CLI: {state.net.dtype}, {state.step} steps, "
                              f"{state.skipped_updates} skipped, launches {cli_launches}")
     emit("train_bf16", card=smi, hw=[H, W], batch=3, classes=7, **out,
          card_vs_cpu=card_vs_cpu,
          train_cli=dict(epochs=1, train_steps=state.step, launches=cli_launches,
                         run_log_names_bfloat16=True))
-    return {k: launches[k] + cli_launches[k] for k in PATH_KERNELS}
+    return {k: launches[k] + cli_launches[k] for k in PATH_KERNELS + K3_KERNELS}
+
+
+# -----------------------------------------------------------------------------
+# K3: the optimizer's kernels
+
+
+def optim_setup(dev, encoder, seed):
+    """FastPoseCNN's parameters with `encoder` on the card (seeded normal
+    values), the MASK_TRAINING optimizer over them (three decoders and their
+    heads frozen, the encoder at its learning-rate ratio), its state at the
+    plateau scale 0.25, and seeded gradients with one parameter's missing."""
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch.models import network_from_hparams
+    from fastposecnn_tpu_torch.train import optim as O
+
+    hp = C.mask_training(ENCODER=encoder)
+    shapes = {n: p.shape for n, p in network_from_hparams(hp).named_parameters()}
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = {n: torch.randn(s, generator=gen, device=dev) * 0.05 for n, s in shapes.items()}
+    opt = O.Optimizer(hp, list(shapes))
+    grads = {n: torch.randn(s, generator=gen, device=dev) for n, s in shapes.items()}
+    grads[opt.names[3]] = None
+    return opt, params, O.set_lr_scale(opt.init(params), 0.25), grads
+
+
+def ops_in_span(prof, span="fpc/optimizer"):
+    """Per `span` range of a torch.profiler trace: the aten ops dispatched
+    inside it (all, and those not called by another aten op) and the CUDA
+    kernel launches (runtime launch calls). Returns three lists, one entry
+    a range."""
+    events = [e for e in prof.events() if e.device_type.name == "CPU"]
+    ranges = [(e.time_range.start, e.time_range.end) for e in events if e.name == span]
+    out = ([], [], [])
+    for lo, hi in ranges:
+        inside = [e for e in events if lo <= e.time_range.start and e.time_range.end <= hi]
+        aten = [e for e in inside if e.name.startswith("aten::")]
+        top = [e for e in aten if e.cpu_parent is None
+               or not e.cpu_parent.name.startswith("aten::")]
+        launches = [e for e in inside if "LaunchKernel" in e.name]
+        for acc, v in zip(out, (aten, top, launches)):
+            acc.append(len(v))
+    return out
+
+
+def optim_span_ops(dev, encoder, steps=3):
+    """What a MASK_TRAINING step of the network with `encoder` dispatches in
+    its `optimizer` span on the card (64x96, batch 2: the count does not
+    depend on the image), over `steps` profiled steps after two warm-up
+    steps: aten ops (all, top-level) and kernel launches, a step."""
+    from fastposecnn_tpu_torch import config as C
+    from torch.profiler import ProfilerActivity, profile
+
+    run = train_setup(dev, C.mask_training, seed=21, h=64, w=96, batch=2, ENCODER=encoder)
+    for _ in range(2):
+        run["state"], _ = run["step"](run["state"], run["batch"], seed=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run["state"], _ = run["step"](run["state"], run["batch"], seed=1)
+        torch.cuda.synchronize()
+    aten, top, launches = ops_in_span(prof)
+    if len(aten) != steps or run["state"].skipped_updates:
+        raise AssertionError(f"{encoder}: {len(aten)} optimizer spans in {steps} steps, "
+                             f"{run['state'].skipped_updates} skipped")
+    return dict(tensors=len(run["opt"].names), aten_ops=aten, top_level_aten_ops=top,
+                kernel_launches=launches)
+
+
+def stats_gap(got, want) -> tuple:
+    """The largest absolute and relative differences of two `GradStats`
+    (K3a's and its plain version's) over the logged norm, the clip norm and
+    the per-tensor sums; equal values (infinities too) differ by 0. Raises
+    unless both agree on `finite` and `nonfinite` and on which values are
+    finite."""
+    if (bool(got.finite), int(got.nonfinite)) != (bool(want.finite), int(want.nonfinite)):
+        raise AssertionError(f"K3a: finite {bool(got.finite)}, {int(got.nonfinite)} non-finite; "
+                             f"plain: {bool(want.finite)}, {int(want.nonfinite)}")
+    a = torch.cat([got.norm.reshape(1), got.clip_norm.reshape(1), got.sums]).double()
+    b = torch.cat([want.norm.reshape(1), want.clip_norm.reshape(1), want.sums]).double()
+    same = a == b
+    if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        raise AssertionError("K3a and its plain version disagree on which values are finite")
+    diff = torch.where(same, torch.zeros_like(a), (a - b).abs())
+    rel = torch.where(same, torch.zeros_like(a), diff / b.abs().clamp_min(1e-300))
+    return float(diff.max()), float(rel.max())
+
+
+def phase_optim_kernel(dev, smi):
+    """K3 at the parameter sets of resnet18 and resnet50 FastPoseCNN, with
+    three decoders frozen and one gradient missing: K3b against the foreach
+    chain given K3a's clip norm over steps 1-8 (bits that differ, the
+    largest absolute difference); K3a against its plain version
+    (`grad_stats_plain`) on the same gradients, each step and on one step
+    with a NaN, a +inf and a -inf planted in three tensors (the logged
+    norm, the clip norm and the sums within 1e-5 relative, the same finite
+    flag and non-finite count), its sums against float64, and the norms
+    with every third tensor flagged tp-sharded (a `mesh.global_sum` that
+    doubles stands in for a tp group of two equal slices, on both sides).
+    Then each kernel's device time (profiler) and time a call (CUDA events
+    around 50 back-to-back calls, median of 5) beside its bound by bytes
+    and its plain version's (the per-parameter statistics; the foreach
+    chain and its apply), and the ops a train step dispatches in its
+    `optimizer` span. Returns the `kernels` entries of optim_stats and
+    optim_update (at resnet18's set, `max_abs_err` the largest difference
+    at either set) and their lines at resnet50's."""
+    from unittest import mock
+
+    from fastposecnn_tpu_torch.parallel.tp import is_sharded
+    from fastposecnn_tpu_torch.train import optim as O
+
+    card, lines, errs = dict(card=smi), {}, {"optim_stats": 0.0, "optim_update": 0.0}
+    for encoder, seed in (("resnet18", 31), ("resnet50", 32)):
+        opt, p_k, st_k, grads = optim_setup(dev, encoder, seed)
+        p_r = {n: t.clone() for n, t in p_k.items()}
+        st_r = O.set_lr_scale(opt.init(p_r), 0.25)
+        differ, update_err, stats_rel, plain_abs, plain_rel = 0, 0.0, 0.0, 0.0, 0.0
+        no_shards = [False] * len(opt.names)
+        for step in range(1, 9):
+            scaled = {n: None if g is None else g * (1.0 if step % 2 else 1e-6)
+                      for n, g in grads.items()}
+            stats = opt.grad_stats(scaled, st_k, p_k)
+            gap = stats_gap(stats, O.grad_stats_plain([scaled[n] for n in opt.names],
+                                                      opt.freeze, no_shards, dev))
+            plain_abs, plain_rel = max(plain_abs, gap[0]), max(plain_rel, gap[1])
+            updates, st_k = opt.update(scaled, st_k, p_k, clip_norm=stats.clip_norm)
+            O.apply_updates(p_k, updates)
+            plain, st_r = opt.plain_update(scaled, st_r, p_r, clip_norm=stats.clip_norm)
+            O.apply_updates(p_r, plain)
+            for got, want in ((p_k, p_r), (st_k.mu, st_r.mu), (st_k.nu, st_r.nu),
+                              (st_k.slow, st_r.slow)):
+                for n in opt.names:
+                    differ += int((got[n].view(torch.int32) != want[n].view(torch.int32)).sum())
+                    update_err = max(update_err, float((got[n] - want[n]).abs().max()))
+            want64 = torch.stack([torch.zeros((), dtype=torch.float64, device=dev)
+                                  if g is None else (g.double() ** 2).sum()
+                                  for g in scaled.values()])
+            rel = (stats.sums.double() - want64).abs() / want64.clamp_min(1e-300)
+            stats_rel = max(stats_rel, float(rel.max()))
+
+        planted = {n: None if g is None else g.clone() for n, g in grads.items()}
+        live = [n for n, f in zip(opt.names, opt.freeze) if f and planted[n] is not None]
+        frozen = [n for n, f in zip(opt.names, opt.freeze) if not f and planted[n] is not None]
+        for n, v in ((frozen[0], "nan"), (live[0], "inf"), (opt.names[-1], "-inf")):
+            planted[n].view(-1)[-1] = float(v)
+        bad = opt.grad_stats(planted, st_k, p_k)
+        bad_plain = O.grad_stats_plain([planted[n] for n in opt.names], opt.freeze,
+                                       no_shards, dev)
+        planted_gap = stats_gap(bad, bad_plain)
+        if bool(bad.finite) or int(bad.nonfinite) != 3 or math.isfinite(float(bad.norm)):
+            raise AssertionError(f"K3a at {encoder} with a NaN, +inf and -inf planted: finite "
+                                 f"{bool(bad.finite)}, {int(bad.nonfinite)} non-finite, "
+                                 f"norm {float(bad.norm)}")
+
+        sharded = [k % 3 == 0 for k in range(len(opt.names))]
+        listed = [grads[n] for n in opt.names]
+        split = O.K3Table(opt, {"params": [p_k[n] for n in opt.names],
+                                **{f: [getattr(st_k, f)[n] for n in opt.names]
+                                   for f in ("mu", "nu", "slow")}}, sharded, key=None)
+        split.upload_grads(listed)
+        with mock.patch.object(O.mesh, "global_sum", lambda t, over: t * 2):
+            split_gap = stats_gap(O.grad_stats_cuda(split),
+                                  O.grad_stats_plain(listed, opt.freeze, sharded, dev))
+        del split
+        plain_abs = max(plain_abs, planted_gap[0], split_gap[0])
+        plain_rel = max(plain_rel, planted_gap[1], split_gap[1])
+        if differ or update_err or not stats_rel < 1e-6 or not plain_rel < 1e-5:
+            raise AssertionError(f"K3 at {encoder}: {differ} elements differ from the chain "
+                                 f"(by up to {update_err}), sums within {stats_rel} of "
+                                 f"float64, statistics within {plain_rel} of the plain ones")
+        errs["optim_stats"] = max(errs["optim_stats"], plain_abs)
+        errs["optim_update"] = max(errs["optim_update"], update_err)
+
+        table = opt.k3_table(st_k, p_k)
+        table.upload_grads([grads[n] for n in opt.names])
+        fused, _ = opt.update(grads, st_k, p_k, clip_norm=opt.grad_stats(grads, st_k, p_k)
+                              .clip_norm)
+        sharded = [is_sharded(p_k[n]) for n in opt.names]
+        listed = [grads[n] for n in opt.names]
+
+        def plain_stats():
+            O.grad_stats_plain(listed, opt.freeze, sharded, dev)
+
+        def plain_update():
+            updates, _ = opt.plain_update(grads, st_r, p_r)
+            O.apply_updates(p_r, updates)
+
+        device_us, _ = kernel_trace(lambda: (O.grad_stats_cuda(table), fused.launch()), 20)
+        dev_ms = {k: sum(v for name, v in device_us.items() if kern in name) / 1e3
+                  for k, kern in (("optim_stats", "optim_grad_stats_kernel"),
+                                  ("optim_update", "optim_update_kernel"))}
+        elements = sum(p.numel() for p in p_k.values())
+        bound = {"optim_stats": 4 * elements / HBM_BYTES_PER_S * 1e3,
+                 "optim_update": 28 * elements / HBM_BYTES_PER_S * 1e3}
+        times = {"optim_stats": loop_ms(lambda: O.grad_stats_cuda(table)),
+                 "optim_update": loop_ms(fused.launch)}
+        plain = {"optim_stats": loop_ms(plain_stats, launches=5, repeats=3),
+                 "optim_update": loop_ms(plain_update, launches=5, repeats=3)}
+        path_ms = loop_ms(lambda: O.apply_updates(p_k, opt.update(
+            grads, st_k, p_k, clip_norm=opt.grad_stats(grads, st_k, p_k).clip_norm)[0]))
+        span = optim_span_ops(dev, encoder)
+        lines[encoder] = {k: dict(kernel=k, shape=[len(opt.names), elements], ms=times[k],
+                                  device_ms=dev_ms[k], plain_ms=plain[k], bound_ms=bound[k],
+                                  bound_by="bytes", roofline=bound[k] / dev_ms[k]
+                                  if dev_ms[k] else None)
+                          for k in times}
+        emit("optim_kernel", encoder=encoder, tensors=len(opt.names), elements=elements,
+             bits_differing_from_chain=differ, update_max_abs_err=update_err,
+             stats_max_relative_to_float64=stats_rel,
+             stats_vs_plain=dict(max_abs_err=plain_abs, max_relative=plain_rel,
+                                 planted=dict(max_abs_err=planted_gap[0],
+                                              nonfinite=int(bad.nonfinite),
+                                              nonfinite_plain=int(bad_plain.nonfinite)),
+                                 sharded_split=dict(max_abs_err=split_gap[0],
+                                                    max_relative=split_gap[1])),
+             kernels=lines[encoder], k3_path_ms=path_ms,
+             plain_path_ms=plain["optim_stats"] + plain["optim_update"],
+             optimizer_span=span, **card)
+        del opt, p_k, p_r, st_k, st_r, grads, planted, table, fused
+    sources = dict(route="cuda", source="fastposecnn_tpu_torch/kernels/optim.cu",
+                   replaces=None, library_ms=None, main_path="train")
+    entries = [dict(name=k, **sources, launches=None, max_abs_err=errs[k],
+                    **{f: v for f, v in lines["resnet18"][k].items() if f != "kernel"})
+               for k in ("optim_stats", "optim_update")]
+    others = {f"optim_resnet50_{k}": v for k, v in lines["resnet50"].items()}
+    return entries, others
 
 
 def deterministic_caller_order_check():
@@ -4052,6 +4293,9 @@ def main():
     new_paths["figures"] = phase_figures(dev, smi)
     new_paths["serve_bf16"] = phase_serve_bf16(dev, smi, server)
     new_paths["train_bf16"] = phase_train_bf16(dev, smi)
+    optim_entries, optim_times = phase_optim_kernel(dev, smi)
+    kernels += optim_entries
+    other_times.update(optim_times)
     for k in kernels:
         name = k["name"]
         k["launches_by_path"] = {"serve": launches[name],

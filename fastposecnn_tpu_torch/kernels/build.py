@@ -33,7 +33,7 @@ from typing import Dict, Optional
 KERNEL_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parent / "_build"
 SOURCES = ("cc_label.cu", "vote_count.cu", "vote_expanded_mma.cu",
-           "vote_expanded_bcast.cu")
+           "vote_expanded_bcast.cu", "optim.cu")
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false", "-Xptxas",
               "-v", "-Xcompiler", "-fPIC", "-shared")
 BUILD_TIMEOUT_S = 300
@@ -164,6 +164,10 @@ def load_library() -> ctypes.CDLL:
     for fn in (lib.fpcnn_vote_expanded_mma, lib.fpcnn_vote_expanded_bcast):
         fn.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, p]
         fn.restype = i
+    lib.fpcnn_optim_grad_stats.argtypes = [p, p, p, i, i, i, p, p, p, p, p, p, p]
+    lib.fpcnn_optim_grad_stats.restype = i
+    lib.fpcnn_optim_update.argtypes = [p, p, p, p, i, i, i, p, p]
+    lib.fpcnn_optim_update.restype = i
     lib.fpcnn_error_string.argtypes = [i]
     lib.fpcnn_error_string.restype = ctypes.c_char_p
     _lib = lib

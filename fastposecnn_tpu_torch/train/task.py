@@ -8,7 +8,8 @@ HEAD_TRAINING the CC kernel K1 and the vote-count kernel K2 run on a CUDA
 device), the weighted multi-task loss, the backward pass and the
 optimizer. As in the JAX step:
   - gradients go through `nan_to_num`; `grad/global_norm` is their norm
-    before freezing;
+    before freezing (an update is applied only when every gradient is
+    finite, where `nan_to_num` changes nothing);
   - a step whose gradients are not all finite keeps the old parameters and
     optimizer state and bumps `skipped_updates`, but the BatchNorm running
     statistics of its forward pass are kept (the JAX step threads the
@@ -41,7 +42,10 @@ built, in its compute dtype (`device.compute_dtype`: a bfloat16 network on
 CUDA under the default `COMPUTE_DTYPE`, as the JAX trainer builds it on a
 TPU); the network returns float32 logits, so the losses, the pipeline's
 stages and the optimizer (float32 parameters and moments) are float32
-either way. On CUDA the step runs in `device.full_float32()`.
+either way. On CUDA the step runs in `device.full_float32()`, and the
+optimizer is kernel K3 (`train/optim.py`): two launches a step whatever the
+number of parameters, updating the parameters and the optimizer's moments
+and slow weights in place.
 """
 
 from __future__ import annotations
@@ -62,7 +66,6 @@ from fastposecnn_tpu_torch.ops.connected_components import raise_on_error_flag
 from fastposecnn_tpu_torch.ops.matching import gather_matched, match_instances
 from fastposecnn_tpu_torch.ops.voting import VoteDraws
 from fastposecnn_tpu_torch.parallel import mesh
-from fastposecnn_tpu_torch.parallel.tp import is_sharded
 from fastposecnn_tpu_torch.pipeline import PipelineConfig, run_pipeline
 from fastposecnn_tpu_torch.train import optim as O
 from fastposecnn_tpu_torch.utils import timer
@@ -206,23 +209,26 @@ def make_train_step(net: torch.nn.Module, optimizer: O.Optimizer, hp,
                 agg = out["aggregated"]
                 cc_error = agg["cc_error"] if agg is not None else None
                 with timer.span("optimizer"):
-                    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+                    grads = [p.grad for p in params]
                     finite = None
                     if mesh.active():
+                        grads = [torch.zeros_like(p) if g is None else g
+                                 for p, g in zip(params, grads)]
                         grads, finite, cc_error = _sum_grads_over_ranks(params, grads, cc_error)
+                    grads, by_name = dict(zip(names, grads)), dict(zip(names, params))
+                    stats = optimizer.grad_stats(grads, state.opt_state, by_name)  # K3a on CUDA
                     if finite is None:
-                        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-                    safe = [torch.nan_to_num(g) for g in grads]
-                    logs["grad/global_norm"] = O.global_norm(safe,
-                                                             [is_sharded(p) for p in params])
+                        finite = stats.finite
+                    logs["grad/global_norm"] = stats.norm
                     logs["grad/finite"] = finite.float()
                     if agg is not None and "vote_rounds" in agg:
                         logs["pose/vote_rounds"] = torch.tensor(float(agg["vote_rounds"]))
                     opt_state, skipped = state.opt_state, state.skipped_updates
                     if timer.host_read("finite", finite.item):  # one host read a step
+                        # finite: nan_to_num would change nothing
                         updates, opt_state = optimizer.update(
-                            dict(zip(names, safe)), state.opt_state, dict(zip(names, params)))
-                        O.apply_updates(dict(zip(names, params)), updates)
+                            grads, state.opt_state, by_name, clip_norm=stats.clip_norm)
+                        O.apply_updates(by_name, updates)  # K3b on CUDA, in place
                     else:
                         skipped += 1
             raise_on_error_flag(cc_error)

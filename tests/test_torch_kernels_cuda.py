@@ -307,3 +307,220 @@ def test_exported_pipeline_launches_the_kernels(cuda_device, tmp_path, adaptive)
     assert torch.equal(got[1], agg["class_ids"])
     for g, w in zip(got[2:], (agg["xy"], agg["z"], agg["RT"])):
         torch.testing.assert_close(g, w, atol=2e-4, rtol=1e-4)
+
+
+# -----------------------------------------------------------------------------
+# K3: the optimizer's gradient statistics and update (`kernels/optim.cu`)
+
+
+def _k3_setup(encoder, dev, seed=0):
+    """FastPoseCNN's parameters with `encoder` on the card (seeded normal
+    values) and the MASK_TRAINING optimizer over them: three decoders and
+    their heads frozen, the encoder at ENCODER_LEARNING_RATE / LEARNING_RATE."""
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch.models import network_from_hparams
+    from fastposecnn_tpu_torch.train import optim as O
+
+    hp = C.mask_training(ENCODER=encoder)
+    shapes = {n: p.shape for n, p in network_from_hparams(hp).named_parameters()}
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = {n: torch.randn(s, generator=gen, device=dev) * 0.05 for n, s in shapes.items()}
+    opt = O.Optimizer(hp, list(shapes))
+    assert 0.0 in opt.freeze and any(r not in (0.0, 1.0) for r in opt.ratio)
+    return opt, params, gen
+
+
+def _bits_differ(a, b) -> int:
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+@pytest.mark.parametrize("encoder", ["resnet18", "resnet50"])
+def test_optim_update_bit_equal_to_plain_chain(cuda_device, encoder):
+    """K3b against the foreach chain given K3a's clip norm, over steps 1-8
+    (un-rectified through 5, the Lookahead sync at 5, rectified from 6), the
+    clip on and off in turn, the plateau scale 0.25, frozen modules, the
+    encoder ratio and one parameter without a gradient: parameters, moments
+    and slow weights bit-equal after every step, one launch of each kernel
+    a step."""
+    from fastposecnn_tpu_torch.train import optim as O
+
+    opt, p_k, gen = _k3_setup(encoder, cuda_device)
+    p_r = {n: t.clone() for n, t in p_k.items()}
+    st_k = O.set_lr_scale(opt.init(p_k), 0.25)
+    st_r = O.set_lr_scale(opt.init(p_r), 0.25)
+    missing = opt.names[3]
+    clipped = []
+    for step in range(1, 9):
+        scale = 1.0 if step % 2 else 1e-6
+        grads = {n: None if n == missing else
+                 torch.randn(t.shape, generator=gen, device=cuda_device) * scale
+                 for n, t in p_k.items()}
+        before = kernels.launch_counts()
+        stats = opt.grad_stats(grads, st_k, p_k)
+        updates, st_k = opt.update(grads, st_k, p_k, clip_norm=stats.clip_norm)
+        O.apply_updates(p_k, updates)
+        after = kernels.launch_counts()
+        plain, st_r = opt.plain_update(grads, st_r, p_r, clip_norm=stats.clip_norm)
+        O.apply_updates(p_r, plain)
+        torch.cuda.synchronize()
+        assert after["optim_stats"] - before["optim_stats"] == 1
+        assert after["optim_update"] - before["optim_update"] == 1
+        clipped.append(bool(stats.clip_norm >= opt.clip))
+        assert (st_k.count, st_k.lookahead_step) == (st_r.count, st_r.lookahead_step) == (step,
+                                                                                          step)
+        for field, got, want in (("param", p_k, p_r), ("mu", st_k.mu, st_r.mu),
+                                 ("nu", st_k.nu, st_r.nu), ("slow", st_k.slow, st_r.slow)):
+            bad = {n: _bits_differ(got[n], want[n]) for n in opt.names}
+            bad = {n: k for n, k in bad.items() if k}
+            assert not bad, (step, field, dict(list(bad.items())[:5]))
+    assert clipped == [True, False] * 4
+    assert [O.radam_scalars(c)["rectified"] for c in range(1, 9)] == [False] * 5 + [True] * 3
+    assert torch.equal(st_k.mu[missing], torch.zeros_like(st_k.mu[missing]))
+
+
+def test_optim_grad_stats(cuda_device):
+    """K3a's per-tensor sums within 1e-6 of a float64 sum; a parameter
+    without a gradient reads as zeros; the logged and clip norms; the count
+    of non-finite elements with one NaN, one +inf and one -inf in the last
+    tensor (the logged norm is then inf: +-inf reads FLT_MAX)."""
+    from fastposecnn_tpu_torch.train import optim as O
+
+    opt, params, gen = _k3_setup("resnet50", cuda_device, seed=1)
+    state = opt.init(params)
+    grads = {n: torch.randn(t.shape, generator=gen, device=cuda_device) * 10.0 ** (k % 5 - 2)
+             for k, (n, t) in enumerate(params.items())}
+    grads[opt.names[5]] = None
+    stats = opt.grad_stats(grads, state, params)
+    want = torch.stack([torch.zeros((), dtype=torch.float64, device=cuda_device) if g is None
+                        else (g.double() ** 2).sum() for g in grads.values()])
+    rel = ((stats.sums.double() - want).abs() / want.clamp_min(1e-300)).max()
+    assert float(rel) < 1e-6, float(rel)
+    assert float(stats.sums[5]) == 0.0
+    live = torch.tensor(opt.freeze, dtype=torch.float64, device=cuda_device) != 0
+    for got, sq in ((stats.norm, want.sum()), (stats.clip_norm, want[live].sum())):
+        assert abs(float(got) / float(sq.sqrt()) - 1) < 1e-6
+    assert bool(stats.finite) and int(stats.nonfinite) == 0
+
+    listed = [grads[n] for n in opt.names]
+    plain = O.grad_stats_plain(listed, opt.freeze, [False] * len(listed), cuda_device)
+    for got, want in ((stats.norm, plain.norm), (stats.clip_norm, plain.clip_norm)):
+        assert abs(float(got) / float(want) - 1) < 1e-6
+
+    last = grads[opt.names[-1]].view(-1)
+    last[:3] = torch.tensor([float("nan"), float("inf"), float("-inf")], device=cuda_device)
+    bad = opt.grad_stats(grads, state, params)
+    assert not bool(bad.finite) and int(bad.nonfinite) == 3
+    assert float(bad.norm) == float("inf") and float(bad.sums[-1]) == float("inf")
+    plain = O.grad_stats_plain(listed, opt.freeze, [False] * len(listed), cuda_device)
+    assert (bool(plain.finite), int(plain.nonfinite)) == (False, 3)
+    for got, want in ((bad.norm, plain.norm), (bad.clip_norm, plain.clip_norm)):
+        assert float(got) == float(want) or abs(float(got) / float(want) - 1) < 1e-6
+
+
+def test_optim_grad_stats_sharded_split(cuda_device, monkeypatch):
+    """With tp-sharded tensors K3a's logged and clip norms add the sharded
+    tensors' squares over the tp group and the others once, as the plain
+    version does: a group of two ranks with equal slices is stood in for by
+    a `mesh.global_sum` that doubles, on both sides."""
+    from fastposecnn_tpu_torch.train import optim as O
+
+    opt, params, gen = _k3_setup("resnet18", cuda_device, seed=2)
+    state = opt.init(params)
+    grads = [torch.randn(params[n].shape, generator=gen, device=cuda_device)
+             for n in opt.names]
+    sharded = [k % 3 == 0 for k in range(len(opt.names))]
+    groups = {"params": [params[n] for n in opt.names],
+              "mu": [state.mu[n] for n in opt.names], "nu": [state.nu[n] for n in opt.names],
+              "slow": [state.slow[n] for n in opt.names]}
+    table = O.K3Table(opt, groups, sharded, key=None)
+    table.upload_grads(grads)
+    monkeypatch.setattr(O.mesh, "global_sum", lambda t, over: t * 2)
+    got = O.grad_stats_cuda(table)
+    want = O.grad_stats_plain(grads, opt.freeze, sharded, cuda_device)
+    one = O.grad_stats_plain(grads, opt.freeze, [False] * len(grads), cuda_device)
+    for g, w, o in ((got.norm, want.norm, one.norm),
+                    (got.clip_norm, want.clip_norm, one.clip_norm)):
+        assert abs(float(g) / float(w) - 1) < 1e-6 and float(w) > float(o) * 1.01
+
+
+def test_optim_update_needs_clip_norm(cuda_device):
+    """On CUDA the update takes the clip norm of `grad_stats`; it raises
+    without it."""
+    from fastposecnn_tpu_torch.train import optim as O
+
+    opt, params, gen = _k3_setup("resnet18", cuda_device, seed=3)
+    grads = {n: torch.randn(t.shape, generator=gen, device=cuda_device)
+             for n, t in params.items()}
+    with pytest.raises(ValueError, match="clip norm"):
+        opt.update(grads, opt.init(params), params)
+
+
+def _k3_train_steps(dev, steps, nan_at=None):
+    """`steps` MASK_TRAINING steps of a random 3-class network at 64x64,
+    batch 2, on the card; with `nan_at` a NaN in one weight's gradient at
+    that step. Returns the states after each step (host copies of the
+    parameters, buffers and optimizer tensors) and the launches a step."""
+    from fastposecnn_tpu_torch import config as C
+    from fastposecnn_tpu_torch.data.synthetic import SceneConfig, make_batch
+    from fastposecnn_tpu_torch.models import PoseRegressorNet
+    from fastposecnn_tpu_torch.models.weights import init_random_
+    from fastposecnn_tpu_torch.train import task
+
+    hp = C.mask_training(IMAGE_HEIGHT=64, IMAGE_WIDTH=64, BATCH_SIZE=2, MAX_INSTANCES=4,
+                         SELECTED_CLASSES=("bg", "bottle", "bowl"))
+    net = init_random_(PoseRegressorNet(hp.num_classes), 0).to(dev)
+    opt = task.make_optimizer(hp, net)
+    state = task.create_train_state(net, opt)
+    inv_k = np.linalg.inv(np.array([[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]]))
+    step = task.make_train_step(net, opt, hp, C.pipeline_config_from(hp), inv_k, dev)
+    batch = make_batch(np.random.default_rng(0), SceneConfig(
+        height=64, width=64, num_classes=3, max_instances=4, max_scene_instances=2,
+        box_half_extent=(6, 14)), 2)
+    weight = net.segmentation_head[0].weight
+    seen, launches = [], []
+    for i in range(steps):
+        hook = weight.register_hook(lambda g: g.index_fill(
+            0, torch.tensor([0], device=g.device), float("nan"))) if i == nan_at else None
+        before = kernels.launch_counts()
+        state, logs = step(state, batch, seed=5)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        if hook is not None:
+            hook.remove()
+        launches.append((after["optim_stats"] - before["optim_stats"],
+                         after["optim_update"] - before["optim_update"]))
+        o = state.opt_state
+        seen.append({**{f"net/{k}": v.detach().cpu().clone()
+                        for k, v in net.state_dict().items()},
+                     **{f"{f}/{k}": v.cpu().clone() for f in ("mu", "nu", "slow")
+                        for k, v in getattr(o, f).items()},
+                     "finite": float(logs["grad/finite"]), "skipped": state.skipped_updates})
+    return seen, launches
+
+
+def test_optim_skipped_step_changes_nothing(cuda_device):
+    """A step whose gradients hold a NaN launches K3a alone and leaves the
+    parameters, moments and slow weights bit-unchanged."""
+    seen, launches = _k3_train_steps(cuda_device, 3, nan_at=1)
+    assert launches == [(1, 1), (1, 0), (1, 1)]
+    assert [s["finite"] for s in seen] == [1.0, 0.0, 1.0]
+    assert seen[1]["skipped"] == 1
+    for k, v in seen[0].items():
+        if k.startswith(("net/", "mu/", "nu/", "slow/")) and "running_" not in k \
+                and "num_batches" not in k:
+            assert torch.equal(v, seen[1][k]), k
+
+
+def test_optim_train_steps_reproducible(cuda_device):
+    """Two runs of six train steps on the card (the Lookahead sync at 5, the
+    rectified update at 6) are bit-equal, one launch of each kernel a
+    step."""
+    a, la = _k3_train_steps(cuda_device, 6)
+    b, lb = _k3_train_steps(cuda_device, 6)
+    assert la == lb == [(1, 1)] * 6
+    for sa, sb in zip(a, b):
+        for k, v in sa.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v, sb[k]), k
+    assert not torch.equal(a[0]["net/segmentation_head.0.weight"],
+                           a[-1]["net/segmentation_head.0.weight"])

@@ -152,7 +152,8 @@ def test_launch_counters():
         kernels.count_launch("vote_count")
         kernels.count_launch("vote_count")
     assert kernels.launch_counts() == {"cc_label": 1, "vote_count": 2,
-                                       "vote_expanded_mm": 0, "vote_expanded_bcast": 0}
+                                       "vote_expanded_mm": 0, "vote_expanded_bcast": 0,
+                                       "optim_stats": 0, "optim_update": 0}
     assert window.counts == {"launch/vote_count": 2}
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
